@@ -4,30 +4,39 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout; it builds the CUDA kernels from
-`pcfa_tpu_torch/csrc/` itself (nvcc, sm_90a) and needs one card. Phases,
-each of which raises on failure (the script then exits non-zero):
+`pcfa_tpu_torch/csrc/` itself (nvcc, sm_90a, one process per source, all
+at once) and needs one card. Phases, each of which raises on failure (the
+script then exits non-zero):
 
 1. build: toolchain, build time, the card's name and power limit;
-2. kernels: every kernel of the RAFT PCFA path against its plain PyTorch
-   version on the card, at the main path's shapes, in float32 and bf16,
-   with kernel, plain-version and library-call times and the bound;
+2. kernels: every kernel of the RAFT and PWCNet PCFA paths against its
+   plain PyTorch version on the card, at the main paths' shapes, in
+   float32 and bf16, with kernel, plain-version and library-call times and
+   the bound (plus the patch correlation at FlowNetC's shape);
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
-   128×128, 3 iterations, float32, on the CPU (plain versions) and on the
-   card (kernels): flows and input gradients;
-4. main path: the disjoint PCFA attack on full RAFT (12 iterations) at the
-   KITTI shape (375×1242 padded to 376×1248), 2 random pairs at once, bf16
-   network and bf16 compact L-BFGS history, δ-bound 0.005, zero target,
-   AEE, clipping, history 100; steps 2 × max_iter 2 so the run stays short.
-   Every kernel's launch count must go up during this run.
+   128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
+   pairs, both float32, on the CPU (plain versions) and on the card
+   (kernels): flows and input gradients;
+4. main path, RAFT: the disjoint PCFA attack on full RAFT (12 iterations)
+   at the KITTI shape (375×1242 padded to 376×1248), 2 random pairs at
+   once, bf16 network and bf16 compact L-BFGS history, δ-bound 0.005, zero
+   target, AEE, clipping, history 100; steps 2 × max_iter 2 so the run
+   stays short;
+5. main path, PWCNet: the same attack on full PWCNet at 375×1242 padded
+   to ÷64 (384×1280), 1 pair, bf16 network and a float32 L-BFGS history
+   (PWCNet refuses a bf16 one), in an environment of its own.
+Every kernel of a path must be launched during that path's run (the
+counts are set to 0 just before it and read just after).
 
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. Without CUDA it exits non-zero and
 prints no result. `--profile` adds a `torch.profiler` table of one outer
-step of the main path (device busy share, top kernels by device time).
+step of each main path (device busy share, top kernels by device time).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -46,17 +55,62 @@ KITTI_HW = (375, 1242)
 PAIRS = 2
 R = 4
 
-# (name, wrapper attribute, source, TPU kernel it replaces)
+PWC_PAIRS = 1
+# PWCNet's correlation levels at 384×1280: (name, H, W, C)
+PWC_LEVELS = [("L6", 6, 20, 196), ("L5", 12, 40, 128), ("L4", 24, 80, 96),
+              ("L3", 48, 160, 64), ("L2", 96, 320, 32)]
+
+# (name, module, wrapper, source, TPU kernel it replaces)
 KERNELS = [
-    ("corr_lookup_fwd", "corr_window_fwd", "pcfa_tpu_torch/csrc/corr_lookup.cu",
+    ("corr_lookup_fwd", "corr_lookup", "corr_window_fwd",
+     "pcfa_tpu_torch/csrc/corr_lookup.cu",
      "pcfa_tpu/ops/pallas/corr_lookup.py:123"),
-    ("corr_lookup_bwd", "corr_window_bwd", "pcfa_tpu_torch/csrc/corr_lookup.cu",
+    ("corr_lookup_bwd", "corr_lookup", "corr_window_bwd",
+     "pcfa_tpu_torch/csrc/corr_lookup.cu",
      "pcfa_tpu/ops/pallas/corr_lookup.py:160"),
-    ("small_conv_fwd", "small_conv_fwd", "pcfa_tpu_torch/csrc/small_conv.cu",
+    ("small_conv_fwd", "small_conv", "small_conv_fwd",
+     "pcfa_tpu_torch/csrc/small_conv.cu",
      "pcfa_tpu/ops/pallas/small_conv.py:170"),
-    ("small_conv_dx", "small_conv_dx", "pcfa_tpu_torch/csrc/small_conv.cu",
+    ("small_conv_dx", "small_conv", "small_conv_dx",
+     "pcfa_tpu_torch/csrc/small_conv.cu",
      "pcfa_tpu/ops/pallas/small_conv.py:350"),
+    ("local_corr_fwd", "local_corr", "local_corr_fwd",
+     "pcfa_tpu_torch/csrc/local_corr.cu",
+     "pcfa_tpu/ops/pallas/local_corr.py:334"),
+    ("local_corr_bwd", "local_corr", "local_corr_bwd",
+     "pcfa_tpu_torch/csrc/local_corr.cu",
+     "pcfa_tpu/ops/pallas/local_corr.py:199"),
+    ("segsum", "segsum", "segment_rows_cuda",
+     "pcfa_tpu_torch/csrc/segsum.cu",
+     "pcfa_tpu/ops/pallas/segsum.py:170"),
 ]
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "RAFT": ["corr_lookup_fwd", "corr_lookup_bwd", "small_conv_fwd",
+             "small_conv_dx"],
+    "PWCNet": ["local_corr_fwd", "local_corr_bwd", "segsum",
+               "small_conv_fwd", "small_conv_dx"],
+}
+
+
+def wrapper(name: str):
+    """The launching wrapper of kernel `name` (it carries `.launches`)."""
+    import importlib
+
+    _, mod, attr, _, _ = next(k for k in KERNELS if k[0] == name)
+    return getattr(importlib.import_module(f"pcfa_tpu_torch.ops.{mod}"),
+                   attr)
+
+
+@contextlib.contextmanager
+def restored_env():
+    """Whatever a phase sets in os.environ is undone when it ends."""
+    saved = dict(os.environ)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
 
 
 def log(*args):
@@ -173,12 +227,8 @@ def grid_sample_lookup(levels, coords):
     return grids
 
 
-def phase_kernels():
-    from pcfa_tpu_torch.ops import corr_lookup as cl
-    from pcfa_tpu_torch.ops import small_conv as sc
-
-    gen = torch.Generator().manual_seed(0)
-    rows = []
+def row_adder(rows: list):
+    """A function that appends one kernel row to `rows` and prints it."""
     card = card_line()
 
     def row(name, dtype, shape, err, ms, plain, lib, nbytes, flops):
@@ -187,9 +237,29 @@ def phase_kernels():
                          shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b, bound_by=by,
                          nbytes=nbytes, flops=flops))
+        lib_s = "none" if lib is None else f"{lib:.4f} ms"
         log(f"  {name:16s} {rows[-1]['dtype']:8s} {shape:34s} err {err:.3g}"
             f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
-            f"{lib:.4f} ms  bound {b:.4f} ms ({by})  [{card}]")
+            f"{lib_s}  bound {b:.4f} ms ({by})  [{card}]")
+
+    return row
+
+
+def phase_kernels():
+    rows = []
+    kernels_raft(rows)
+    kernels_local_corr(rows)
+    kernels_segsum(rows)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernels_raft(rows):
+    from pcfa_tpu_torch.ops import corr_lookup as cl
+    from pcfa_tpu_torch.ops import small_conv as sc
+
+    gen = torch.Generator().manual_seed(0)
+    row = row_adder(rows)
 
     # tolerances relative to the values' scale: float32 convs differ from
     # cuDNN (TF32 off) by summation order; the plain lookup's grid_sample
@@ -273,60 +343,170 @@ def phase_kernels():
                 plain, lib,
                 (gout.numel() + wt.numel() + dx.numel()) * isz, flops)
             del x, out, gout, dx
-    torch.cuda.empty_cache()
-    return rows
+
+
+def valid_products(H: int, W: int, patch: int, stride: int) -> int:
+    """(pixel, shift) pairs whose shifted pixel lies in the map: the
+    products the correlation needs (zero padding needs none)."""
+    R = (patch - 1) // 2 * stride
+    offs = [i * stride - R for i in range(patch)]
+    return (sum(max(0, H - abs(d)) for d in offs)
+            * sum(max(0, W - abs(d)) for d in offs))
+
+
+def kernels_local_corr(rows):
+    """Patch correlation, forward and backward, at every PWCNet level at
+    384×1280 (B = 1, patch 9) and the forward at FlowNetC's shape (patch 21,
+    stride 2). No single PyTorch call computes it: library_ms is null.
+    Tolerances as the RAFT kernels': float32 1e-4, bf16 3e-2 of the scale."""
+    from pcfa_tpu_torch.ops import local_corr as lc
+
+    gen = torch.Generator().manual_seed(1)
+    row = row_adder(rows)
+    log("# patch correlation vs plain (PWCNet levels at 384x1280, B = 1)")
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        isz = torch.empty((), dtype=dtype).element_size()
+        shapes = [("FlowNetC", 48, 160, 256, 21, 2)] + [
+            (n, h, w, c, 9, 1) for n, h, w, c in PWC_LEVELS]
+        for tag, h, w, c, patch, stride in shapes:
+            f1, f2 = (torch.randn((PWC_PAIRS, h, w, c), generator=gen)
+                      .to("cuda", dtype) for _ in range(2))
+            out = lc.local_corr_fwd(f1, f2, patch, stride)
+            torch.cuda.synchronize()
+            err = check_close(f"local corr fwd {tag}", out,
+                              lc.local_corr_plain(f1, f2, patch, stride), tol)
+            shape = f"{tag} {PWC_PAIRS}x{h}x{w}x{c} p{patch} s{stride}"
+            prods = PWC_PAIRS * valid_products(h, w, patch, stride) * c
+            row("local_corr_fwd", dtype, shape, err,
+                cuda_ms(lambda: lc.local_corr_fwd(f1, f2, patch, stride)),
+                cuda_ms(lambda: lc.local_corr_plain(f1, f2, patch, stride),
+                        reps=3), None,
+                (f1.numel() + f2.numel() + out.numel()) * isz, 2 * prods)
+            if tag == "FlowNetC":  # slice F wires its backward
+                continue
+            g = torch.randn(out.shape, generator=gen).to("cuda", dtype)
+            got = lc.local_corr_bwd(g, f1, f2, patch, stride)
+            ref = lc.local_corr_bwd_plain(g, f1, f2, patch, stride)
+            torch.cuda.synchronize()
+            err = max(check_close(f"local corr bwd {tag} {i}", a, b, tol)
+                      for i, (a, b) in enumerate(zip(got, ref)))
+            row("local_corr_bwd", dtype, shape, err,
+                cuda_ms(lambda: lc.local_corr_bwd(g, f1, f2, patch, stride)),
+                cuda_ms(lambda: lc.local_corr_bwd_plain(g, f1, f2, patch,
+                                                        stride), reps=3),
+                None, (g.numel() + 4 * f1.numel()) * isz, 4 * prods)
+            del f1, f2, out, g, got, ref
+
+
+def kernels_segsum(rows):
+    """The warp's segment row-sum at PWCNet's four warps at 384×1280
+    (B = 1): N = H·W sample rows of K = 4C, nrows = (H+1)(W+1) window
+    bases, indices from the packed sampler at a random flow of a few
+    pixels; plus a collision-heavy case (level 2's rows into 64 cells).
+    The main path's rows are float32 (the warp's backward computes in
+    float32); bf16 rows are checked too. Tolerance: float32 1e-4, bf16
+    3e-2 of the scale (atomics add in a varying order)."""
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.ops.warp import _corner_weights
+
+    gen = torch.Generator().manual_seed(2)
+    row = row_adder(rows)
+    log("# segsum vs plain (PWCNet warps at 384x1280, B = 1)")
+    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        isz = torch.empty((), dtype=dtype).element_size()
+        cases = [("L2 collide", 96, 320, 32, True)] + [
+            (n, h, w, c, False) for n, h, w, c in PWC_LEVELS[1:]]
+        for tag, h, w, c, collide in cases:
+            n, k, nrows = PWC_PAIRS * h * w, 4 * c, PWC_PAIRS * (h + 1) * (
+                w + 1)
+            if collide:
+                idx = torch.randint(0, 64, (n,), generator=gen)
+            else:
+                ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w),
+                                        indexing="ij")
+                flow = 2.0 * torch.randn((PWC_PAIRS, h, w, 2), generator=gen)
+                idx = _corner_weights((PWC_PAIRS, h, w, c), xs + flow[..., 0],
+                                      ys + flow[..., 1], True)[0]
+            idx = idx.to("cuda")
+            upd = torch.randn((n, k), generator=gen).to("cuda", dtype)
+            out = sg.segment_rows_cuda(idx, upd, nrows)
+            torch.cuda.synchronize()
+            err = check_close(f"segsum {tag}", out,
+                              sg.segment_rows_plain(idx, upd, nrows), tol)
+            row("segsum", dtype, f"{tag} N={n} K={k} nrows={nrows}", err,
+                cuda_ms(lambda: sg.segment_rows_cuda(idx, upd, nrows)),
+                cuda_ms(lambda: sg.segment_rows_plain(idx, upd, nrows)),
+                cuda_ms(lambda: torch.zeros((nrows, k), dtype=dtype,
+                                            device="cuda").index_add_(
+                                                0, idx, upd)),
+                n * k * isz + n * 8 + nrows * k * isz, n * k)
+            del idx, upd, out
 
 
 # ------------------------------------------------------------------ 3 ---
 
-def phase_parity():
-    """Card (kernels) vs CPU (plain versions), float32. Flows: rtol/atol
-    1e-3. Input gradients: float32 rounding switches a few ReLU units of a
-    random-init RAFT on or off (pre-activations within ~1e-6 of the kink),
-    which moves single gradient elements by up to ~5e-3 of a ~0.2 scale on
-    both devices alike; so the gradients are held to a relative L2 error of
-    1e-2 and 99.5% of their elements to rtol/atol 1e-3."""
-    import copy
-
-    from pcfa_tpu_torch.runtime import load_model
-
-    loaded = load_model("RAFT", init_random=True, seed=0, device="cpu",
-                        iters=3)
-    with torch.no_grad():
-        loaded.module.update_block.flow_head.conv2.weight.mul_(0.01)
-        loaded.module.update_block.flow_head.conv2.bias.mul_(0.01)
-    models = {"cpu": loaded.module,
-              "cuda": copy.deepcopy(loaded.module).to("cuda")}
-    rng = np.random.default_rng(0)
-    i1, i2 = (torch.from_numpy(rng.random((2, 128, 128, 3)).astype(np.float32))
-              for _ in range(2))
-    g = torch.from_numpy(rng.standard_normal((2, 128, 128, 2))
-                         .astype(np.float32))
+def card_vs_cpu(name, models, inputs, g):
+    """Run `models` {'cpu', 'cuda'} on the same float32 inputs, backprop
+    Σ flow·g and compare. Flows: rtol/atol 1e-3. Input gradients: float32
+    rounding switches a few ReLU/LeakyReLU units of a random-init net on or
+    off (pre-activations within ~1e-6 of the kink), which moves single
+    gradient elements by up to ~5e-3 of a ~0.2 scale on both devices
+    alike; so the gradients are held to a relative L2 error of 1e-2 and
+    99.5% of their elements to rtol/atol 1e-3."""
     res = {}
     for dev, model in models.items():
-        a = i1.clone().to(dev).requires_grad_(True)
-        b = i2.clone().to(dev).requires_grad_(True)
-        _, up = model(a, b)
+        a = inputs[0].clone().to(dev).requires_grad_(True)
+        b = inputs[1].clone().to(dev).requires_grad_(True)
+        up = model(a, b)
+        up = up[-1] if isinstance(up, tuple) else up
         (up * g.to(dev)).sum().backward()
         res[dev] = [t.detach().cpu().double() for t in (up, a.grad, b.grad)]
     up_c, *grads_c = res["cpu"]
     up_g, *grads_g = res["cuda"]
     err_up = float((up_g - up_c).abs().max())
     if not torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3):
-        raise AssertionError(f"parity: flow_up max abs err {err_up}")
+        raise AssertionError(f"parity {name}: flow max abs err {err_up}")
     worst = []
-    for name, gg, gc in zip(("d image1", "d image2"), grads_g, grads_c):
+    for what, gg, gc in zip(("d image1", "d image2"), grads_g, grads_c):
         rel_l2 = float((gg - gc).norm() / gc.norm())
         within = float(((gg - gc).abs() <= 1e-3 + 1e-3 * gc.abs())
                        .double().mean())
-        worst.append((name, rel_l2, within, float((gg - gc).abs().max())))
+        worst.append((what, rel_l2, within, float((gg - gc).abs().max())))
         if not (rel_l2 <= 1e-2 and within >= 0.995):
-            raise AssertionError(f"parity: {name} rel L2 {rel_l2}, "
+            raise AssertionError(f"parity {name}: {what} rel L2 {rel_l2}, "
                                  f"{within:.4%} within tolerance")
-    log(f"# parity card vs CPU (RAFT 128x128, 3 iters, fp32): flow_up max "
-        f"abs err {err_up:.3g}; " + "; ".join(
+    log(f"# parity card vs CPU ({name}): flow max abs err {err_up:.3g} "
+        f"(scale {float(up_c.abs().max()):.3g}); " + "; ".join(
             f"{n}: rel L2 {r:.3g}, {w:.4%} within 1e-3, max abs {m:.3g}"
             for n, r, w, m in worst))
+
+
+def phase_parity():
+    """Card (kernels) vs CPU (plain versions), float32: RAFT (flow-head
+    conv2 damped ×0.01, 3 iterations) and PWCNet, each 128×128, 2 pairs."""
+    import copy
+
+    from pcfa_tpu_torch.runtime import load_model
+
+    rng = np.random.default_rng(0)
+    i1, i2 = (torch.from_numpy(rng.random((2, 128, 128, 3)).astype(np.float32))
+              for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((2, 128, 128, 2))
+                         .astype(np.float32))
+    loaded = load_model("RAFT", init_random=True, seed=0, device="cpu",
+                        iters=3)
+    with torch.no_grad():
+        loaded.module.update_block.flow_head.conv2.weight.mul_(0.01)
+        loaded.module.update_block.flow_head.conv2.bias.mul_(0.01)
+    card_vs_cpu("RAFT 128x128, 3 iters, fp32",
+                {"cpu": loaded.module,
+                 "cuda": copy.deepcopy(loaded.module).to("cuda")},
+                (i1, i2), g)
+    loaded = load_model("PWCNet", init_random=True, seed=0, device="cpu")
+    card_vs_cpu("PWCNet 128x128, fp32",
+                {"cpu": loaded.module,
+                 "cuda": copy.deepcopy(loaded.module).to("cuda")},
+                (i1, i2), g)
 
 
 # ------------------------------------------------------------------ 4 ---
@@ -356,35 +536,34 @@ def profile_step(step) -> None:
             f"{e.key[:110]}")
 
 
-def phase_main_path(profile: bool = False):
-    os.environ.setdefault("PCFA_COMPUTE_DTYPE", "bfloat16")
-    os.environ.setdefault("PCFA_LBFGS_DTYPE", "bfloat16")
-    os.environ.setdefault("PCFA_LBFGS_DIRECTION", "compact")
+def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
+    """The PCFA attack on full `net` at the KITTI shape, random pairs, from
+    the entry points a user calls; the environment (compute dtype, L-BFGS
+    direction and history dtype) is the caller's. Returns the launches of
+    every kernel during the run."""
     from pcfa_tpu_torch import config
     from pcfa_tpu_torch.attack import pcfa
-    from pcfa_tpu_torch.ops import corr_lookup as cl
-    from pcfa_tpu_torch.ops import small_conv as sc
     from pcfa_tpu_torch.runtime import load_model, make_flow_fn
 
     cfg = pcfa.PCFAConfig(
         steps=2, max_iter=2, delta_bound=0.005, loss="aee", target="zero",
         boxconstraint="clipping", history_size=100,
         lbfgs_direction=config.lbfgs_direction(),
-        lbfgs_history_dtype=config.lbfgs_history_dtype("RAFT"))
-    log(f"# main path: RAFT iters 12, {KITTI_HW[0]}x{KITTI_HW[1]} padded to "
-        f"÷8, pairs {PAIRS}, compute {os.environ['PCFA_COMPUTE_DTYPE']}, "
-        f"config {cfg}")
-    loaded = load_model("RAFT", init_random=True, seed=0)
+        lbfgs_history_dtype=config.lbfgs_history_dtype(net))
+    loaded = load_model(net, init_random=True, seed=0)
     padder, flow_fn = make_flow_fn(loaded, KITTI_HW, pad_mode="kitti")
+    log(f"# main path: {net}, {KITTI_HW[0]}x{KITTI_HW[1]} "
+        f"padded to {padder.padded_shape} (÷{loaded.spec.pad_divisor}), "
+        f"pairs {pairs}, compute {os.environ.get('PCFA_COMPUTE_DTYPE')}, "
+        f"config {cfg}")
     rng = np.random.default_rng(0)
-    imgs = [torch.from_numpy(rng.random((PAIRS, *KITTI_HW, 3))
+    imgs = [torch.from_numpy(rng.random((pairs, *KITTI_HW, 3))
                              .astype(np.float32)).cuda() for _ in range(2)]
     image1, image2 = padder.pad(*imgs)
-    target = torch.zeros((PAIRS, *KITTI_HW, 2), device="cuda")
+    target = torch.zeros((pairs, *KITTI_HW, 2), device="cuda")
 
-    wrappers = [cl.corr_window_fwd, cl.corr_window_bwd, sc.small_conv_fwd,
-                sc.small_conv_dx]
-    for w in wrappers:
+    wrappers = {name: wrapper(name) for name, *_ in KERNELS}
+    for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -399,20 +578,22 @@ def phase_main_path(profile: bool = False):
         torch.cuda.synchronize()
         t_steps.append(time.perf_counter() - t)
     t_run = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
     for name, v in metrics._asdict().items():
         if not torch.isfinite(v).all():
-            raise AssertionError(f"main path: metric {name} not finite: {v}")
+            raise AssertionError(f"main path {net}: metric {name} not "
+                                 f"finite: {v}")
     if not (torch.isfinite(flow_pred).all() and torch.isfinite(state.opt.x)
             .all()):
-        raise AssertionError("main path: non-finite flow or iterate")
-    if flow_pred.shape != (PAIRS, *KITTI_HW, 2):
-        raise AssertionError(f"main path: flow shape {tuple(flow_pred.shape)}")
-    missing = [k for k, v in launches.items() if v == 0]
+        raise AssertionError(f"main path {net}: non-finite flow or iterate")
+    if flow_pred.shape != (pairs, *KITTI_HW, 2):
+        raise AssertionError(f"main path {net}: flow shape "
+                             f"{tuple(flow_pred.shape)}")
+    missing = [k for k in PATH_KERNELS[net] if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"main path {net} never launched {missing}")
 
     # per-closure and forward times, measured after the run
     _, _, _, value_and_grad = pcfa._make_problem(flow_fn, image1, image2,
@@ -435,18 +616,18 @@ def phase_main_path(profile: bool = False):
         profile_step(lambda: pcfa.pcfa_outer_step(
             flow_fn, image1, image2, target, flow_init, state, cfg))
     it_s = (t_steps[-1] - fwd) / cfg.max_iter
-    published = (20 * 10 * it_s + 21 * fwd) / PAIRS
+    published = (20 * 10 * it_s + 21 * fwd) / pairs
     card = card_line()
-    log("# main path metrics (last step, per pair): " + ", ".join(
+    log(f"# main path {net} metrics (last step, per pair): " + ", ".join(
         f"{k} {v.tolist()}" for k, v in metrics._asdict().items()))
-    log(f"# main path: run {t_run:.3f} s ({cfg.steps} steps × "
-        f"{cfg.max_iter} iters, {PAIRS} pairs) = {PAIRS / t_run:.4f} pairs/s;"
+    log(f"# main path {net}: run {t_run:.3f} s ({cfg.steps} steps × "
+        f"{cfg.max_iter} iters, {pairs} pairs) = {pairs / t_run:.4f} pairs/s;"
         f" outer steps {[round(t, 3) for t in t_steps]} s; closure "
-        f"(fwd+bwd, {PAIRS} pairs) {1e3 * closure:.1f} ms; forward "
+        f"(fwd+bwd, {pairs} pairs) {1e3 * closure:.1f} ms; forward "
         f"{1e3 * fwd:.1f} ms; L-BFGS iteration {1e3 * it_s:.1f} ms; "
         f"projected published config (20×10 + 21 fwd): {1 / published:.5f} "
         f"pairs/s; peak memory {peak / 2**30:.2f} GiB [{card}]")
-    log(f"# main path launches: {json.dumps(launches)}")
+    log(f"# main path {net} launches: {json.dumps(launches)}")
     return launches
 
 
@@ -459,23 +640,38 @@ def main() -> int:
     from pcfa_tpu_torch._device import resolve_device
 
     resolve_device("cuda")  # float32 means float32 on the card (no TF32)
+    profile = "--profile" in sys.argv[1:]
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    launches = phase_main_path(profile="--profile" in sys.argv[1:])
+    with restored_env():
+        os.environ.setdefault("PCFA_COMPUTE_DTYPE", "bfloat16")
+        os.environ.setdefault("PCFA_LBFGS_DTYPE", "bfloat16")
+        os.environ.setdefault("PCFA_LBFGS_DIRECTION", "compact")
+        by_path = {"RAFT": phase_main_path("RAFT", PAIRS, profile)}
+    torch.cuda.empty_cache()
+    with restored_env():
+        # PWCNet refuses a bf16 history: unset, so float32
+        os.environ["PCFA_COMPUTE_DTYPE"] = "bfloat16"
+        os.environ["PCFA_LBFGS_DIRECTION"] = "compact"
+        os.environ.pop("PCFA_LBFGS_DTYPE", None)
+        by_path["PWCNet"] = phase_main_path("PWCNet", PWC_PAIRS, profile)
 
     kernels = []
-    for name, attr, src, replaces in KERNELS:
-        # the main path's dtype (bf16) and, for the convs, the layer1 shape
-        # (8 of the 10 launches per closure); every row is printed above
+    for name, _, _, src, replaces in KERNELS:
+        # the main path's dtype and shape: bf16 (segsum: float32, the
+        # warp's rows) at the largest level; the convs at RAFT's layer1
+        # (8 of its 10 launches per closure); every row is printed above
         r = next(r for r in reversed(rows) if r["name"] == name)
+        paths = {net: n[name] for net, n in by_path.items()
+                 if name in PATH_KERNELS[net]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[attr], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-            dtype=r["dtype"], shape=r["shape"]))
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], dtype=r["dtype"], shape=r["shape"]))
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

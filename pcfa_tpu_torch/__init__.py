@@ -7,9 +7,11 @@ module here is held against its `pcfa_tpu` counterpart by the tests in
 
 Layout (mirrors `pcfa_tpu`):
     ops/       warp and correlation primitives; hand-written CUDA kernels
-               (`corr_lookup`, `small_conv`) beside their plain versions
+               (`corr_lookup`, `small_conv`, `local_corr`, `segsum`)
+               beside their plain versions
     csrc/      the kernels' CUDA C++ sources, built by `ops/_build.py`
-    models/    RAFT as `nn.Module`s, the model registry, weight conversion
+    models/    RAFT and PWCNet as `nn.Module`s, the model registry, weight
+               conversion
     attack/    PCFA engine, L-BFGS with a leading pair axis, losses,
                targets, box constraints
     utils/     input padding

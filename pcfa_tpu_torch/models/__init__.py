@@ -1,8 +1,9 @@
-"""Flow networks as `nn.Module`s plus the model registry. RAFT is the
-one network ported so far."""
+"""Flow networks as `nn.Module`s plus the model registry. RAFT and PWCNet
+are ported so far."""
 
 from __future__ import annotations
 
+from pcfa_tpu_torch.models.pwcnet import PWCDCNet
 from pcfa_tpu_torch.models.raft import RAFT
 from pcfa_tpu_torch.models.spec import ModelSpec, get_spec, register
 
@@ -16,6 +17,8 @@ register(
     )
 )
 
+register(ModelSpec(name="PWCNet", pad_divisor=64, make=PWCDCNet))
+
 
 def make_model(name: str, **overrides):
     """Construct the module for `name` (weights uninitialized).
@@ -27,4 +30,5 @@ def make_model(name: str, **overrides):
     return spec.make(**kwargs), spec
 
 
-__all__ = ["ModelSpec", "get_spec", "make_model", "register", "RAFT"]
+__all__ = ["ModelSpec", "get_spec", "make_model", "register", "PWCDCNet",
+           "RAFT"]

@@ -1,12 +1,13 @@
-"""Weight bridge from the JAX package's RAFT parameter tree to this
-package's `state_dict`.
+"""Weight bridges from the JAX package's parameter trees (RAFT, PWCNet) to
+this package's `state_dict`s.
 
-The tree is a nested dict of numpy arrays (as `pcfa_tpu` builds it from a
-checkpoint or from random init). Conv kernels go HWIO → OIHW; folded
-BatchNorms stay as scale/bias. Key names follow the reference torch RAFT,
-except that a BatchNorm carries `scale`/`bias` instead of its four
-running statistics, so loading a reference checkpoint later is this key map
-plus the BatchNorm fold.
+A tree is a nested dict of numpy arrays (as `pcfa_tpu` builds it from a
+checkpoint or from random init). Conv kernels go HWIO → OIHW; transposed
+conv kernels (flax `ConvTranspose`, taps flipped) go back to torch's
+unflipped IOHW; folded BatchNorms stay as scale/bias. Key names follow the
+reference torch networks, except that a BatchNorm carries `scale`/`bias`
+instead of its four running statistics, so loading a reference checkpoint
+later is this key map plus the BatchNorm fold.
 """
 
 from __future__ import annotations
@@ -20,6 +21,13 @@ import torch
 def conv_weight(kernel) -> np.ndarray:
     """HWIO kernel → OIHW weight."""
     return np.ascontiguousarray(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def conv_transpose_weight(kernel) -> np.ndarray:
+    """Flipped HWIO `nn.ConvTranspose` kernel → IOHW `ConvTranspose2d`
+    weight (the inverse of `pcfa_tpu`'s `conv_transpose_kernel`)."""
+    k = np.asarray(kernel)[::-1, ::-1]
+    return np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1)))
 
 
 def _conv(out: dict, key: str, leaf: Mapping) -> None:
@@ -66,5 +74,26 @@ def raft_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         _conv(out, f"update_block.flow_head.{k}", ub["flow_head"][k])
     _conv(out, "update_block.mask.0", ub["mask_conv1"])
     _conv(out, "update_block.mask.2", ub["mask_conv2"])
+    return _tensors(out)
+
+
+def pwcnet_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """`pcfa_tpu` PWCDCNet params → `state_dict`. Key families as the
+    reference: `conv1a.0.*` (conv + LeakyReLU), `deconv6.*` / `upfeat6.*`
+    (IOHW transposed convs), `predict_flow6.*` and `dc_conv7.*` (bare
+    convs). The JAX tree has no `deconv2` (unused in the reference)."""
+    out: dict = {}
+    for name, leaf in tree.items():
+        if "0" in leaf:
+            _conv(out, f"{name}.0", leaf["0"])
+        elif name.startswith(("deconv", "upfeat")):
+            out[f"{name}.weight"] = conv_transpose_weight(leaf["kernel"])
+            out[f"{name}.bias"] = np.asarray(leaf["bias"])
+        else:
+            _conv(out, name, leaf)
+    return _tensors(out)
+
+
+def _tensors(arrays: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+            for k, v in arrays.items()}

@@ -1,4 +1,6 @@
-"""Differentiable primitives of the RAFT path and their CUDA kernels:
-`warp` (coords grid, pooling, bilinear sampling), `correlation` (pyramid
-and window lookup), `corr_lookup` and `small_conv` (kernel wrappers with
-their plain versions), `_build` (nvcc build and ctypes loading)."""
+"""Differentiable primitives of the RAFT and PWCNet paths and their CUDA
+kernels: `warp` (coords grid, pooling, bilinear sampling, the packed-corner
+`grid_sample`, resizing), `correlation` (RAFT's pyramid and window lookup,
+the plain patch correlations), `corr_lookup`, `small_conv`, `local_corr`
+and `segsum` (kernel wrappers with their plain versions), `_build` (nvcc
+build and ctypes loading)."""

@@ -25,7 +25,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("corr_lookup", "small_conv")
+SOURCES = ("corr_lookup", "small_conv", "local_corr", "segsum")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,11 +1,17 @@
-"""Sampling and pooling primitives of the RAFT path (channels-last public
-layout, like `pcfa_tpu/ops/warp.py`): images (B, H, W, C), point grids
-(B, Hg, Wg, 2) with (x, y) in the last axis."""
+"""Sampling, warping, resizing and pooling primitives (channels-last
+public layout, like `pcfa_tpu/ops/warp.py`): images (B, H, W, C), point
+grids (B, Hg, Wg, 2) with (x, y) in the last axis.
+
+`grid_sample` is the JAX package's packed-corner sampler: one row gather
+of each sample's 2×2 window, and a backward whose image gradient is one
+segment row-sum (`ops/segsum.py`, a CUDA kernel on the card)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from pcfa_tpu_torch.ops.segsum import segment_rows
 
 
 def coords_grid(batch: int, ht: int, wd: int,
@@ -43,3 +49,148 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
                         mode="bilinear", padding_mode="zeros",
                         align_corners=True)
     return out.permute(0, 2, 3, 1).to(img.dtype)
+
+
+def _corner_weights(img_shape, ix: torch.Tensor, iy: torch.Tensor,
+                    zeros: bool):
+    """Coordinate machinery of the packed-corner sampler
+    (`pcfa_tpu/ops/warp.py:_corner_weights`).
+
+    Returns (idx, w4, mask4, a, b): `idx` (N,) flat-indexes the
+    (B, H+1, W+1) grid of window bases in the edge-replicated pad, `w4`
+    (N, 4) the bilinear weights in slot order tl, tr, bl, br, `mask4`
+    (N, 4) the zeros-mode corner validity (None in border mode), `a`, `b`
+    the fractional offsets. The window base is clipped to [−1, dim−1], so
+    an out-of-range corner reads, and in the backward accumulates onto,
+    the border cell a per-corner clamp would use; NaN coordinates take
+    base −1 and, in zeros mode, zero weights."""
+    B, H, W, _ = img_shape
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    a = ix - x0
+    b = iy - y0
+    r0 = torch.clamp(torch.nan_to_num(y0, nan=-1.0), -1, H - 1).long() + 1
+    c0 = torch.clamp(torch.nan_to_num(x0, nan=-1.0), -1, W - 1).long() + 1
+    N = r0.numel()
+    brow = (torch.arange(B, device=ix.device) * (H + 1)).view(
+        B, *([1] * (ix.dim() - 1)))
+    idx = ((brow + r0) * (W + 1) + c0).reshape(N)
+    wx = torch.stack([1.0 - a, a], dim=-1)
+    wy = torch.stack([1.0 - b, b], dim=-1)
+    w4 = (wy[..., :, None] * wx[..., None, :]).reshape(N, 4)
+    mask4 = None
+    if zeros:
+        vx = torch.stack([(x0 >= 0) & (x0 < W), (x0 + 1 >= 0) & (x0 + 1 < W)],
+                         dim=-1)
+        vy = torch.stack([(y0 >= 0) & (y0 < H), (y0 + 1 >= 0) & (y0 + 1 < H)],
+                         dim=-1)
+        mask4 = (vy[..., :, None] & vx[..., None, :]).reshape(N, 4)
+        w4 = torch.where(mask4, w4, torch.zeros((), dtype=w4.dtype,
+                                                device=w4.device))
+    return idx, w4, mask4, a, b
+
+
+def _pack_windows(img: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B·(H+1)·(W+1), 4C): row (b, r, c) holds the 2×2
+    window at base (r, c) of the edge-replicated pad, corners in slot
+    order."""
+    B, H, W, C = img.shape
+    p = F.pad(img.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    p = p.permute(0, 2, 3, 1)
+    win4 = torch.cat([p[:, :-1, :-1], p[:, :-1, 1:], p[:, 1:, :-1],
+                      p[:, 1:, 1:]], dim=-1)
+    return win4.reshape(B * (H + 1) * (W + 1), 4 * C)
+
+
+class _PackedBilinear(torch.autograd.Function):
+    """Bilinear sample of `img` (B, H, W, C) at absolute pixel coordinates
+    `ix`, `iy` (B, Hg, Wg): the forward and custom VJP of
+    `pcfa_tpu/ops/warp.py:_bilinear_abs_packed`. The output takes the
+    promoted dtype of image and coordinates, as in the JAX package. The
+    backward computes in float32 (float64 for float64 inputs): d img is
+    one segment row-sum of the 4C-wide corner rows onto the window bases,
+    four shifted adds and the border folds; d ix, d iy come from the
+    saved corner values."""
+
+    @staticmethod
+    def forward(ctx, img, ix, iy, zeros):
+        B, H, W, C = img.shape
+        idx, w4, mask4, a, b = _corner_weights(img.shape, ix, iy, zeros)
+        win = _pack_windows(img)[idx].reshape(-1, 4, C)
+        rt = torch.promote_types(img.dtype, ix.dtype)
+        out = (w4.to(rt)[:, :, None] * win.to(rt)).sum(1)
+        ctx.img_shape, ctx.img_dtype = img.shape, img.dtype
+        ctx.save_for_backward(win, idx, w4, mask4, a, b)
+        return out.reshape(*ix.shape, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        win, idx, w4, mask4, a, b = ctx.saved_tensors
+        B, H, W, C = ctx.img_shape
+        N = w4.shape[0]
+        dt = torch.promote_types(g.dtype, torch.float32)
+        gf = g.reshape(N, C).to(dt)
+        dimg = dix = diy = None
+        if ctx.needs_input_grad[0]:
+            upd = (w4.to(dt)[:, :, None] * gf[:, None, :]).reshape(N, 4 * C)
+            buf = segment_rows(idx, upd, B * (H + 1) * (W + 1))
+            buf = buf.reshape(B, H + 1, W + 1, 4, C)
+            acc = buf.new_zeros((B, H + 2, W + 2, C))
+            acc[:, :-1, :-1] += buf[..., 0, :]
+            acc[:, :-1, 1:] += buf[..., 1, :]
+            acc[:, 1:, :-1] += buf[..., 2, :]
+            acc[:, 1:, 1:] += buf[..., 3, :]
+            rows = acc[:, 1:-1].clone()
+            rows[:, 0] += acc[:, 0]
+            rows[:, -1] += acc[:, -1]
+            dimg = rows[:, :, 1:-1].clone()
+            dimg[:, :, 0] += rows[:, :, 0]
+            dimg[:, :, -1] += rows[:, :, -1]
+            dimg = dimg.to(ctx.img_dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dot = (win.to(dt) * gf[:, None, :]).sum(-1)  # (N, 4)
+            if mask4 is not None:
+                dot = torch.where(mask4, dot, torch.zeros((), dtype=dt,
+                                                          device=dot.device))
+            af = a.reshape(N).to(dt)
+            bf = b.reshape(N).to(dt)
+            dix = ((1.0 - bf) * (dot[:, 1] - dot[:, 0])
+                   + bf * (dot[:, 3] - dot[:, 2])).reshape(a.shape).to(a.dtype)
+            diy = ((1.0 - af) * (dot[:, 2] - dot[:, 0])
+                   + af * (dot[:, 3] - dot[:, 1])).reshape(b.shape).to(b.dtype)
+        return dimg, dix, diy, None
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False,
+                padding_mode: str = "zeros") -> torch.Tensor:
+    """Bilinear sampling with torch `F.grid_sample` semantics on
+    channels-last tensors, through the packed-corner sampler.
+
+    img: (B, H, W, C); grid: (B, Hg, Wg, 2) in [−1, 1], (x, y) order.
+    Returns (B, Hg, Wg, C) in the promoted dtype of img and grid."""
+    B, H, W, C = img.shape
+    x, y = grid[..., 0], grid[..., 1]
+    if align_corners:
+        ix = (x + 1.0) * 0.5 * (W - 1)
+        iy = (y + 1.0) * 0.5 * (H - 1)
+    else:
+        ix = ((x + 1.0) * W - 1.0) * 0.5
+        iy = ((y + 1.0) * H - 1.0) * 0.5
+    if padding_mode == "border":
+        ix = torch.clamp(ix, 0.0, W - 1)
+        iy = torch.clamp(iy, 0.0, H - 1)
+    elif padding_mode != "zeros":
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
+    return _PackedBilinear.apply(img, ix, iy, padding_mode == "zeros")
+
+
+def interpolate_bilinear(img: torch.Tensor, out_hw: tuple[int, int],
+                         align_corners: bool = False) -> torch.Tensor:
+    """torch `F.interpolate(mode='bilinear')` on (B, H, W, C), computed in
+    float32 at least (the JAX package's float32 resize matrices promote a
+    bf16 image the same way)."""
+    dt = torch.promote_types(img.dtype, torch.float32)
+    out = F.interpolate(img.permute(0, 3, 1, 2).to(dt), size=tuple(out_hw),
+                        mode="bilinear", align_corners=align_corners)
+    return out.permute(0, 2, 3, 1)

@@ -40,12 +40,17 @@ class LoadedModel:
 
 
 def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
-    """Flax-default random init, in place, from a seeded generator."""
+    """Flax-default random init, in place, from a seeded generator. A
+    kernel's fan-in is its input channels × taps: dim 1 of a conv weight
+    (O, I, kh, kw), dim 0 of a transposed conv weight (I, O, kh, kw)."""
     gen = torch.Generator().manual_seed(seed)
+    transposed = {id(m.weight) for m in module.modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("weight") and p.dim() == 4:
-                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                c_in = p.shape[0] if id(p) in transposed else p.shape[1]
+                fan_in = c_in * p.shape[2] * p.shape[3]
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                 t = torch.empty(p.shape, dtype=torch.float32)
                 nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,

@@ -12,7 +12,9 @@ plain float32 version (cuDNN with TF32 off) differ only in summation order
 position by up to ~1e-5 px at x ≈ 150; on random maps that is ~1e-5 of the
 values (1e-4 leaves room). A bf16 kernel accumulates in float32 and rounds
 its output once; the plain version computes in float32 from the same bf16
-inputs, so they differ by bf16 rounding (3e-2).
+inputs, so they differ by bf16 rounding (3e-2). The patch correlation's
+kernel and plain version are float32 sums of the same products in another
+order (1e-4; bf16 3e-2 as above).
 """
 
 import numpy as np
@@ -153,3 +155,107 @@ def test_small_conv_autograd_on_card(rng, cuda):
     xr = x.detach().requires_grad_()
     sc.conv_plain(xr, w, b, 2, "relu").square().sum().backward()
     _close(x.grad, xr.grad, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", [
+    # (B, H, W, C, patch, stride)
+    (1, 6, 20, 196, 9, 1),     # PWCNet level 6 at 384×1280
+    (1, 24, 80, 96, 9, 1),     # level 4
+    (2, 7, 45, 33, 5, 1),      # odd sizes, ragged channel chunk
+    (1, 2, 3, 5, 9, 1),        # map smaller than the patch
+    (1, 20, 40, 256, 21, 2),   # FlowNetC's patch and stride
+])
+def test_local_corr_kernel_matches_plain(rng, cuda, dtype, tol, case):
+    from pcfa_tpu_torch.ops import local_corr as lc
+
+    B, H, W, C, patch, stride = case
+    f1 = _t(rng.standard_normal((B, H, W, C))).to(cuda, dtype)
+    f2 = _t(rng.standard_normal((B, H, W, C))).to(cuda, dtype)
+    before = (lc.local_corr_fwd.launches, lc.local_corr_bwd.launches)
+    out = lc.local_corr_fwd(f1, f2, patch, stride)
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, W, patch * patch) and out.dtype == dtype
+    _close(out, lc.local_corr_plain(f1, f2, patch, stride), tol)
+    g = _t(rng.standard_normal(tuple(out.shape))).to(cuda, dtype)
+    got = lc.local_corr_bwd(g, f1, f2, patch, stride)
+    ref = lc.local_corr_bwd_plain(g, f1, f2, patch, stride)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        _close(a, b, tol)
+    assert (lc.local_corr_fwd.launches, lc.local_corr_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_local_corr_autograd_on_card(rng, cuda):
+    from pcfa_tpu_torch.ops import local_corr as lc
+
+    f1 = _t(rng.standard_normal((2, 12, 40, 32))).to(cuda).requires_grad_()
+    f2 = _t(rng.standard_normal((2, 12, 40, 32))).to(cuda).requires_grad_()
+    f, b = lc.local_corr_fwd.launches, lc.local_corr_bwd.launches
+    lc.local_corr(f1, f2, 9, 1).square().sum().backward()
+    assert (lc.local_corr_fwd.launches, lc.local_corr_bwd.launches) == (
+        f + 1, b + 1)
+    r1, r2 = (t.detach().requires_grad_() for t in (f1, f2))
+    lc.local_corr_plain(r1, r2, 9, 1).square().sum().backward()
+    _close(f1.grad, r1.grad, 1e-4)
+    _close(f2.grad, r2.grad, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["warp", "one_cell", "out_of_range"])
+def test_segsum_kernel_matches_float64(rng, cuda, dtype, case):
+    """Against a float64 truth: float32 atomics add in a varying order, so
+    float32 rows are held to atol 2e-5 / rtol 2e-4 (as the JAX package's
+    segsum tests); bf16 rows come back rounded to bf16 (1e-2). Indices
+    outside [0, nrows) are skipped."""
+    from pcfa_tpu_torch.ops import segsum as sg
+
+    N, K, nrows = 7680, 256, 7889   # PWCNet's level-3 warp at 384×1280
+    idx = rng.integers(0, nrows, N)
+    if case == "one_cell":
+        idx[:4000] = 17
+    elif case == "out_of_range":
+        idx[::7] = nrows + 3
+        idx[1::7] = -1
+    upd = _t(rng.standard_normal((N, K))).to(dtype)
+    keep = (idx >= 0) & (idx < nrows)
+    want = np.zeros((nrows, K))
+    np.add.at(want, idx[keep], upd.double().numpy()[keep])
+    before = sg.segment_rows_cuda.launches
+    got = sg.segment_rows(torch.from_numpy(idx).to(cuda), upd.to(cuda), nrows)
+    torch.cuda.synchronize()
+    assert sg.segment_rows_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (nrows, K)
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else dict(
+        atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got.double().cpu().numpy(), want, **tol)
+
+
+@pytest.mark.cuda
+def test_grid_sample_autograd_on_card(rng, cuda):
+    """The packed sampler on the card: d img through the segsum kernel,
+    against the same sampler on the CPU (plain row-sum)."""
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.ops.warp import grid_sample
+
+    img = _t(rng.standard_normal((2, 24, 80, 32)))
+    grid = _t(rng.uniform(-1.2, 1.2, (2, 24, 80, 2)))
+    g = _t(rng.standard_normal((2, 24, 80, 32)))
+    res = {}
+    for dev in ("cpu", cuda):
+        a = img.to(dev).detach().requires_grad_()
+        b = grid.to(dev).detach().requires_grad_()
+        (grid_sample(a, b) * g.to(dev)).sum().backward()
+        res[str(dev)] = (a.grad.cpu(), b.grad.cpu())
+    before = sg.segment_rows_cuda.launches
+    a = img.to(cuda).requires_grad_()
+    grid_sample(a, grid.to(cuda)).sum().backward()
+    assert sg.segment_rows_cuda.launches == before + 1
+    for x, y in zip(res["cpu"], res[str(cuda)]):
+        _close(y, x, 1e-4)

@@ -1,8 +1,9 @@
-"""The two kernels of the RAFT slice on the CPU: their plain versions vs
-`pcfa_tpu` (the XLA lookup, the Pallas kernels in interpret mode) and the
-autograd wiring of each wrapper. The CUDA kernels themselves are held
-against the plain versions on the card by `tests/test_torch_cuda.py` and
-`chip_smoke.py`."""
+"""The port's kernels on the CPU (the RAFT slice's corr lookup and small
+conv, PWCNet's patch correlation and segment row-sum): their plain
+versions vs `pcfa_tpu` (the XLA ops, the Pallas kernels in interpret mode)
+and the autograd wiring of each wrapper. The CUDA kernels themselves are
+held against the plain versions on the card by `tests/test_torch_cuda.py`
+and `chip_smoke.py`."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,8 @@ import jax.numpy as jnp
 from pcfa_tpu.ops import correlation as jcorr
 from pcfa_tpu.ops.pallas.corr_lookup import corr_lookup_pallas
 from pcfa_tpu_torch.ops import corr_lookup as cl
+from pcfa_tpu_torch.ops import local_corr as lc
+from pcfa_tpu_torch.ops import segsum as sg
 from pcfa_tpu_torch.ops import small_conv as sc
 from pcfa_tpu_torch.ops.correlation import corr_lookup, corr_lookup_window
 
@@ -262,3 +265,165 @@ def test_conv_cpu_dispatch_is_plain(rng):
     np.testing.assert_array_equal(sc.small_conv2d(x, w, None, 1).numpy(),
                                   sc.conv_plain(x, w, None, 1).numpy())
     assert (sc.small_conv_fwd.launches, sc.small_conv_dx.launches) == before
+
+
+# ------------------------------------------------------ local corr ---
+
+@pytest.mark.parametrize("case", [
+    # (B, H, W, C, patch, stride)
+    (2, 32, 40, 8, 9, 1),    # PWCNet's patch
+    (1, 33, 36, 8, 5, 1),    # odd height, patch 5
+    (1, 32, 32, 8, 5, 2),    # global flavour: max_disp 4, stride2 2
+])
+def test_local_corr_plain_matches_xla_and_pallas(rng, case):
+    """Values and (df1, df2) against `pcfa_tpu`'s XLA correlation (autodiff
+    for the gradients) and the Pallas `_forward` / `_backward` in interpret
+    mode. Maps hold ≥ 1024 pixels, where the Pallas backward runs its
+    kernels. float32 sums of ≤ 81·C products: 1e-5 / 1e-4."""
+    from pcfa_tpu.ops.pallas.local_corr import _backward, _forward
+    from pcfa_tpu_torch.ops.correlation import (global_correlation,
+                                                local_correlation)
+
+    B, H, W, C, patch, stride = case
+    f1 = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    f2 = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    g = rng.standard_normal((B, H, W, patch * patch)).astype(np.float32)
+    j1, j2 = jnp.asarray(f1), jnp.asarray(f2)
+    if stride == 1:
+        xla = lambda a, b: jcorr.local_correlation(a, b, patch)  # noqa: E731
+        plain = local_correlation
+        args = (patch,)
+    else:
+        R = (patch - 1) // 2 * stride
+        xla = lambda a, b: jcorr.global_correlation(a, b, R, stride)  # noqa
+        plain = global_correlation
+        args = (R, stride)
+
+    t1, t2 = _t(f1).requires_grad_(True), _t(f2).requires_grad_(True)
+    got = plain(t1, t2, *args)
+    assert got.shape == (B, H, W, patch * patch)
+    ref, vjp = jax.vjp(xla, j1, j2)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        got.detach().numpy(),
+        np.asarray(_forward(j1, j2, patch, stride, interpret=True)),
+        atol=1e-5)
+
+    (got * _t(g)).sum().backward()
+    bwd = lc.local_corr_bwd_plain(_t(g), _t(f1), _t(f2), patch, stride)
+    pallas = _backward(j1, j2, jnp.asarray(g), patch, stride, interpret=True)
+    for port, plain_bwd, r, p in zip((t1.grad, t2.grad), bwd, vjp(
+            jnp.asarray(g)), pallas):
+        np.testing.assert_allclose(port.numpy(), np.asarray(r), atol=1e-4)
+        np.testing.assert_allclose(plain_bwd.numpy(), np.asarray(r),
+                                   atol=1e-4)
+        np.testing.assert_allclose(port.numpy(), np.asarray(p), atol=1e-4)
+
+
+def test_local_corr_rows_then_columns(rng):
+    """Channel (dy+R)·P + (dx+R): dy shifts rows (not RAFT's transposed
+    window). f2 = a one-hot column index map picks the shifted column."""
+    H, W, R = 7, 11, 2
+    P = 2 * R + 1
+    f1 = torch.ones(1, H, W, 1)
+    f2 = torch.arange(W, dtype=torch.float32).expand(1, H, W)[..., None]
+    out = lc.local_corr_plain(f1, f2, P, 1)[0, 3, 5]  # pixel (y 3, x 5)
+    dy, dx = np.meshgrid(np.arange(-R, R + 1), np.arange(-R, R + 1),
+                         indexing="ij")
+    np.testing.assert_array_equal(out.numpy(), (5 + dx).reshape(-1))
+
+
+def test_local_corr_bf16_plain_matches_xla(rng):
+    """bf16 maps: the plain version sums in float32 and rounds once."""
+    f1 = rng.standard_normal((1, 6, 20, 32)).astype(np.float32)
+    f2 = rng.standard_normal((1, 6, 20, 32)).astype(np.float32)
+    ref = np.asarray(jcorr.local_correlation(jnp.asarray(f1),
+                                             jnp.asarray(f2), 9))
+    got = lc.local_corr_plain(_t(f1).bfloat16(), _t(f2).bfloat16(), 9, 1)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=3e-2)
+
+
+def test_local_corr_autograd_function_wiring(rng, monkeypatch):
+    """`_LocalCorr` with its kernels swapped for the plain versions: both
+    maps get the plain gradient and each kernel counts one launch."""
+    def fwd(a, b, p, s):
+        fwd.launches += 1
+        return lc.local_corr_plain(a, b, p, s)
+
+    def bwd(g, a, b, p, s):
+        bwd.launches += 1
+        return lc.local_corr_bwd_plain(g, a, b, p, s)
+
+    fwd.launches = bwd.launches = 0
+    monkeypatch.setattr(lc, "local_corr_fwd", fwd)
+    monkeypatch.setattr(lc, "local_corr_bwd", bwd)
+    f1 = _t(rng.standard_normal((2, 5, 6, 4))).requires_grad_(True)
+    f2 = _t(rng.standard_normal((2, 5, 6, 4))).requires_grad_(True)
+    g = _t(rng.standard_normal((2, 5, 6, 25)))
+    (lc._LocalCorr.apply(f1, f2, 5, 1) * g).sum().backward()
+    ref = lc.local_corr_bwd_plain(g, f1, f2, 5, 1)
+    np.testing.assert_allclose(f1.grad.numpy(), ref[0].numpy(), atol=1e-6)
+    np.testing.assert_allclose(f2.grad.numpy(), ref[1].numpy(), atol=1e-6)
+    assert (fwd.launches, bwd.launches) == (1, 1)
+
+
+def test_local_corr_cpu_dispatch_is_plain(rng):
+    f1 = _t(rng.standard_normal((1, 4, 5, 3)))
+    before = (lc.local_corr_fwd.launches, lc.local_corr_bwd.launches)
+    np.testing.assert_array_equal(lc.local_corr(f1, f1, 9, 1).numpy(),
+                                  lc.local_corr_plain(f1, f1, 9, 1).numpy())
+    assert (lc.local_corr_fwd.launches, lc.local_corr_bwd.launches) == before
+
+
+# ---------------------------------------------------------- segsum ---
+
+@pytest.mark.parametrize("case", ["one_cell", "sparse_tail", "tiny",
+                                  "multi_chunk"])
+def test_segment_rows_plain_matches_pallas(rng, case):
+    """The plain row-sum against `segment_rows_pallas` (interpret mode) and
+    a float64 truth, on the edge cases of tests/test_ops_warp.py: every
+    row in one cell, a long empty tail, fewer rows than a chunk, many
+    chunks. atol 2e-5 / rtol 2e-4 as there (2000-way collisions carry
+    float32 summation noise on either side)."""
+    from pcfa_tpu.ops.pallas import segsum as jsegsum
+
+    N, nrows = {"one_cell": (2000, 5000), "sparse_tail": (300, 9000),
+                "tiny": (17, 40), "multi_chunk": (6000, 300)}[case]
+    if case == "one_cell":
+        idx = np.full(N, 4321, np.int64)
+    elif case == "sparse_tail":
+        idx = rng.integers(0, 50, N)
+    else:
+        idx = rng.integers(0, nrows, N)
+    upd = rng.standard_normal((N, 12)).astype(np.float32)
+    want = np.zeros((nrows, 12))
+    np.add.at(want, idx, upd.astype(np.float64))
+    tol = dict(atol=2e-5, rtol=2e-4)
+
+    got = sg.segment_rows(torch.from_numpy(idx), _t(upd), nrows)
+    assert got.dtype == torch.float32 and got.shape == (nrows, 12)
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+    ref = jsegsum.segment_rows_pallas(jnp.asarray(idx, jnp.int32),
+                                      jnp.asarray(upd), nrows, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
+
+
+def test_segment_rows_dtypes_and_dispatch(rng):
+    """bf16 rows sum in float32 and come back bf16; float64 stays float64;
+    CPU tensors never launch the kernel."""
+    idx = torch.from_numpy(rng.integers(0, 7, 300))
+    upd = _t(rng.standard_normal((300, 5)))
+    before = sg.segment_rows_cuda.launches
+    want = sg.segment_rows(idx, upd.double(), 7)
+    assert want.dtype == torch.float64
+    got = sg.segment_rows(idx, upd.bfloat16(), 7)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        sg.segment_rows_plain(idx, upd.bfloat16().float(), 7).numpy(),
+        rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(sg.segment_rows(idx, upd, 7).numpy(),
+                               want.numpy(), atol=1e-5)
+    assert sg.segment_rows_cuda.launches == before

@@ -9,6 +9,7 @@ room for a different summation order.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -161,3 +162,115 @@ def test_resolve_device_needs_cuda_unless_cpu():
             _device.resolve_device()
     with pytest.raises(ValueError):
         _device.resolve_device("meta")
+
+
+# ------------------------------------------- packed sampler, PWC warp ---
+
+def _jax_onehot_segsum(monkeypatch):
+    """Route the JAX warp VJP's image gradient through the Pallas segsum
+    kernel in interpret mode, as tests/test_ops_warp.py does."""
+    from pcfa_tpu.ops.pallas import segsum as jsegsum
+
+    monkeypatch.setattr(jsegsum, "_INTERPRET", True)
+    monkeypatch.setenv("PCFA_WARP_DIMG", "onehot")
+
+
+@pytest.mark.parametrize("mode,align", [("zeros", False), ("zeros", True),
+                                        ("border", False)])
+def test_grid_sample_matches_jax(rng, monkeypatch, mode, align):
+    """Values, d img and d grid of the packed-corner sampler against
+    `pcfa_tpu`'s (its custom VJP, d img through the Pallas segsum), with
+    coordinates in, on the edge of, and far outside the image, and a
+    collision hotspot. float32: 1e-5 on values, 2e-5 on d img (sums of
+    many corner rows), 1e-4 on d grid (scaled by W/2)."""
+    import jax
+
+    _jax_onehot_segsum(monkeypatch)
+    img = rng.standard_normal((2, 9, 12, 3)).astype(np.float32)
+    grid = rng.uniform(-1.6, 1.6, (2, 7, 10, 2)).astype(np.float32)
+    grid[0, :3, :3] = (0.21, -0.37)           # many samples on one window
+    grid[1, 0, 0] = (-1.0, 1.0)               # exact corners
+    grid[1, 0, 1] = (40.0, -50.0)             # far outside
+    g = rng.standard_normal((2, 7, 10, 3)).astype(np.float32)
+
+    ti = _t(img).requires_grad_(True)
+    tg = _t(grid).requires_grad_(True)
+    out = warp.grid_sample(ti, tg, align, mode)
+    (out * _t(g)).sum().backward()
+
+    def f(a, b):
+        return jwarp.grid_sample(a, b, align_corners=align, padding_mode=mode)
+
+    ref, vjp = jax.vjp(f, jnp.asarray(img), jnp.asarray(grid))
+    di, dg = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=TOL)
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(di), atol=2e-5)
+    np.testing.assert_allclose(tg.grad.numpy(), np.asarray(dg), atol=1e-4)
+
+
+def test_grid_sample_matches_torch(rng):
+    """The packed sampler equals `F.grid_sample` (values), both padding
+    modes, including a NaN coordinate (zeros mode: 0, like the JAX
+    sampler's masked weights)."""
+    img = rng.standard_normal((1, 6, 8, 2)).astype(np.float32)
+    grid = rng.uniform(-1.3, 1.3, (1, 5, 4, 2)).astype(np.float32)
+    for mode in ("zeros", "border"):
+        ref = F.grid_sample(_t(img).permute(0, 3, 1, 2), _t(grid),
+                            mode="bilinear", padding_mode=mode,
+                            align_corners=False).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(
+            warp.grid_sample(_t(img), _t(grid), False, mode).numpy(),
+            ref.numpy(), atol=TOL)
+    grid[0, 0, 0] = np.nan
+    out = warp.grid_sample(_t(img), _t(grid), False, "zeros")
+    assert torch.count_nonzero(out[0, 0, 0]) == 0
+
+
+def test_pwc_warp_matches_jax(rng, monkeypatch):
+    """`pwc_warp` (grid normalized by max(W−1, 1), sampled with
+    align_corners=False and zero padding, mask `grid_sample(ones) ≥ 1e-4`
+    without gradient): values and the gradients of x and flow, with flows
+    that push samples off the map."""
+    import jax
+
+    from pcfa_tpu.models.pwcnet import pwc_warp as jpwc_warp
+    from pcfa_tpu_torch.models.pwcnet import pwc_warp
+
+    _jax_onehot_segsum(monkeypatch)
+    x = rng.standard_normal((2, 8, 10, 5)).astype(np.float32)
+    flow = (3.0 * rng.standard_normal((2, 8, 10, 2))).astype(np.float32)
+    flow[0, 0, 0] = (-30.0, 2.0)
+    g = rng.standard_normal((2, 8, 10, 5)).astype(np.float32)
+    tx, tf = _t(x).requires_grad_(True), _t(flow).requires_grad_(True)
+    out = pwc_warp(tx, tf)
+    (out * _t(g)).sum().backward()
+    ref, vjp = jax.vjp(jpwc_warp, jnp.asarray(x), jnp.asarray(flow))
+    dx, df = vjp(jnp.asarray(g))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=TOL)
+    assert torch.count_nonzero(out[0, 0, 0]) == 0  # masked off the map
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dx), atol=2e-5)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(df), atol=1e-4)
+    # bf16 features keep a float32 grid and come back bf16
+    out16 = pwc_warp(_t(x).bfloat16(), _t(flow))
+    assert out16.dtype == torch.bfloat16
+    np.testing.assert_allclose(out16.float().numpy(), np.asarray(ref),
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("align", [False, True])
+def test_interpolate_bilinear_matches_jax_and_torch(rng, align):
+    x = rng.standard_normal((2, 5, 7, 2)).astype(np.float32)
+    got = warp.interpolate_bilinear(_t(x), (20, 28), align)
+    ref = np.asarray(jwarp.interpolate_bilinear(jnp.asarray(x), (20, 28),
+                                                align))
+    assert got.shape == (2, 20, 28, 2)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL)
+    direct = F.interpolate(_t(x).permute(0, 3, 1, 2), size=(20, 28),
+                           mode="bilinear", align_corners=align)
+    np.testing.assert_allclose(got.numpy(),
+                               direct.permute(0, 2, 3, 1).numpy(), atol=1e-6)
+    assert warp.interpolate_bilinear(_t(x).bfloat16(), (20, 28)).dtype \
+        == torch.float32

@@ -173,8 +173,10 @@ def test_model_registry():
     assert (spec.pad_divisor, spec.iters) == (8, 12)
     module, spec2 = make_model("RAFT")
     assert module.iters == 12 and spec2 is spec
-    with pytest.raises(KeyError, match="RAFT"):
-        get_spec("PWCNet")
+    pwc = get_spec("PWCNet")
+    assert (pwc.pad_divisor, pwc.iters) == (64, None)
+    with pytest.raises(KeyError, match="PWCNet"):
+        get_spec("FlowNet2")
 
 
 def test_runtime_flow_fn_on_cpu(monkeypatch):
