@@ -17,9 +17,10 @@
 // columns of a row: the row reads are coalesced and each warp's atomics hit
 // consecutive addresses of one or two cells. An index outside [0, nrows)
 // is skipped, so no write leaves the buffer. Atomics make the order of the
-// additions, and so the float32 rounding, vary from run to run.
+// additions, and so the float32 rounding, vary from run to run. The rows
+// are float32 only: the warp's backward always builds them in float32, as
+// the TPU kernel takes them.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,48 +28,30 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float load_f(const float* p, int64_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-segsum_kernel(const int64_t* __restrict__ idx, const T* __restrict__ upd,
+segsum_kernel(const int64_t* __restrict__ idx, const float* __restrict__ upd,
               float* __restrict__ out, int64_t n, int k, int64_t nrows) {
   const int64_t total = n * k;
   for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * kThreads) {
     const int64_t i = e / k;
     const int64_t p = idx[i];
-    if (p >= 0 && p < nrows)
-      atomicAdd(out + p * k + (e - i * k), load_f(upd, e));
+    if (p >= 0 && p < nrows) atomicAdd(out + p * k + (e - i * k), upd[e]);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 for `upd` (n, k); idx: int64 (n);
-// out: float32 (nrows, k), zero-filled by the caller. Returns
-// cudaGetLastError().
-extern "C" int pcfa_segsum(int dtype, const void* idx, const void* upd,
-                           void* out, int64_t n, int k, int64_t nrows,
-                           void* stream) {
-  if ((dtype != 0 && dtype != 1) || n < 0 || k <= 0 || nrows < 0)
-    return (int)cudaErrorInvalidValue;
+// upd: float32 (n, k); idx: int64 (n); out: float32 (nrows, k),
+// zero-filled by the caller. Returns cudaGetLastError().
+extern "C" int pcfa_segsum(const void* idx, const void* upd, void* out,
+                           int64_t n, int k, int64_t nrows, void* stream) {
+  if (n < 0 || k <= 0 || nrows < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int64_t blocks = (n * k + kThreads - 1) / kThreads;
   const dim3 grid((unsigned)(blocks < 65536 * 16 ? blocks : 65536 * 16));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* ip = static_cast<const int64_t*>(idx);
-  float* op = static_cast<float*>(out);
-  if (dtype == 0)
-    segsum_kernel<float><<<grid, kThreads, 0, s>>>(
-        ip, static_cast<const float*>(upd), op, n, k, nrows);
-  else
-    segsum_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        ip, static_cast<const __nv_bfloat16*>(upd), op, n, k, nrows);
+  segsum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(idx), static_cast<const float*>(upd),
+      static_cast<float*>(out), n, k, nrows);
   return (int)cudaGetLastError();
 }

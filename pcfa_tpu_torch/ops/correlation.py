@@ -1,6 +1,9 @@
 """Correlation ops of `pcfa_tpu/ops/correlation.py`: RAFT's pyramid and
-window lookup (the materialized path), and the plain patch correlations of
-PWCNet (`local_correlation`) and FlowNetC (`global_correlation`).
+window lookup (the materialized path). The plain patch correlation of
+PWCNet (`local_correlation`) and FlowNetC (`global_correlation`) is
+`ops.local_corr.local_corr_plain(f1, f2, patch, stride)`: patch 9, stride
+1 for the one; patch 2·(max_disp/stride2) + 1, stride `stride2` for the
+other.
 
 Layouts follow the JAX package at the public functions: feature maps
 (B, H, W, C), coords (B, H1, W1, 2), lookup output (B, H1, W1, L·(2r+1)²).
@@ -16,7 +19,6 @@ import torch
 
 from pcfa_tpu_torch.config import corr_hbm_budget_bytes
 from pcfa_tpu_torch.ops.corr_lookup import corr_window, corr_window_plain
-from pcfa_tpu_torch.ops.local_corr import local_corr_plain
 from pcfa_tpu_torch.ops.warp import avg_pool2d
 
 
@@ -79,20 +81,3 @@ def corr_lookup_window(pyramid: list[torch.Tensor], coords: torch.Tensor,
     out = corr_window(pyramid, coords.reshape(B * H1 * W1, 2), radius)
     return out.reshape(B, H1, W1, -1)
 
-
-def local_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                      patch_size: int = 9) -> torch.Tensor:
-    """Plain PWCNet patch correlation: out[b, h, w, (dy+R)·P + (dx+R)] =
-    Σ_c f1[b,h,w,c] · f2[b,h+dy,w+dx,c] / C, zero padding; dy shifts rows.
-    The network runs `ops.local_corr.local_corr` (the kernel on CUDA)."""
-    return local_corr_plain(fmap1, fmap2, patch_size, 1)
-
-
-def global_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                       max_displacement: int = 20,
-                       stride2: int = 2) -> torch.Tensor:
-    """Plain FlowNetC correlation: displacements on a `stride2` grid in
-    [−max_displacement, max_displacement]², (2·max_disp/stride2 + 1)²
-    channels, zero padding, divided by C."""
-    patch = 2 * (max_displacement // stride2) + 1
-    return local_corr_plain(fmap1, fmap2, patch, stride2)

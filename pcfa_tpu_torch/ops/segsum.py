@@ -9,9 +9,11 @@ Replaces the Pallas kernel of `pcfa_tpu/ops/pallas/segsum.py`
 not carried over: the kernel (`csrc/segsum.cu`) is a float32 `atomicAdd`
 splat, the form the reference's own CUDA warp backward takes.
 
-Accumulated in float32 (the plain version: float64 for float64 rows) and
-returned in `upd`'s dtype. Atomics add in an order that changes from run to
-run, so results differ from the plain version by float32 rounding.
+The kernel takes float32 rows only (the warp's backward always builds
+them in float32, as the TPU kernel takes them) and raises for any other
+dtype. The plain version accumulates in float32 (float64 for float64
+rows) and returns `upd`'s dtype. Atomics add in an order that changes from
+run to run, so results differ from the plain version by float32 rounding.
 
 Bound on the H100 (PWCNet's warps at 384×1280, B = 1): the largest warp
 moves ~32 MB (float32 rows in, cells out); memory-bound.
@@ -28,11 +30,10 @@ import torch
 
 from pcfa_tpu_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "pcfa_segsum": [ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-                    ctypes.c_int64, _P],
+    "pcfa_segsum": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                    _P],
 }
 
 
@@ -47,9 +48,9 @@ def segment_rows_plain(idx: torch.Tensor, upd: torch.Tensor,
 
 def segment_rows_cuda(idx: torch.Tensor, upd: torch.Tensor,
                       nrows: int) -> torch.Tensor:
-    """Launch the kernel (CUDA tensors only). Indices outside [0, nrows)
-    are skipped."""
-    if upd.dtype not in _DTYPES:
+    """Launch the kernel (CUDA tensors, float32 rows only). Indices
+    outside [0, nrows) are skipped."""
+    if upd.dtype != torch.float32:
         raise TypeError(f"segsum kernel: unsupported dtype {upd.dtype}")
     if (upd.dim() != 2 or idx.dim() != 1 or idx.shape[0] != upd.shape[0]
             or idx.device != upd.device or idx.dtype.is_floating_point):
@@ -61,11 +62,11 @@ def segment_rows_cuda(idx: torch.Tensor, upd: torch.Tensor,
     N, K = upd.shape
     out = torch.zeros((nrows, K), dtype=torch.float32, device=upd.device)
     stream = torch.cuda.current_stream(upd.device).cuda_stream
-    err = lib.pcfa_segsum(_DTYPES[upd.dtype], idx.data_ptr(), upd.data_ptr(),
-                          out.data_ptr(), N, K, nrows, stream)
+    err = lib.pcfa_segsum(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), N,
+                          K, nrows, stream)
     _build.check(err, "pcfa_segsum")
     segment_rows_cuda.launches += 1
-    return out.to(upd.dtype)
+    return out
 
 
 segment_rows_cuda.launches = 0

@@ -14,7 +14,9 @@ values (1e-4 leaves room). A bf16 kernel accumulates in float32 and rounds
 its output once; the plain version computes in float32 from the same bf16
 inputs, so they differ by bf16 rounding (3e-2). The patch correlation's
 kernel and plain version are float32 sums of the same products in another
-order (1e-4; bf16 3e-2 as above).
+order (1e-4), each rounded once to bf16 (one bf16 ulp, ≤ 2⁻⁷ of a value:
+1e-2). The scale is the plain result's largest magnitude, with no floor,
+so a limit stays relative to values well under 1.
 """
 
 import numpy as np
@@ -48,7 +50,7 @@ def _t(a):
 
 def _close(got, ref, tol):
     got, ref = got.float(), ref.float()
-    scale = max(1.0, float(ref.abs().max()))
+    scale = float(ref.abs().max()) or 1.0
     diff = (got - ref).abs().nan_to_num(nan=float("inf"))
     err = float(diff.max())
     at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
@@ -127,6 +129,8 @@ def test_corr_lookup_autograd_on_card(rng, cuda):
     (1, 3, 37, 51, 20, 5, 2, "leaky"),
     (1, 6, 17, 19, 3, 3, 1, None),
     (1, 5, 15, 9, 7, 3, 2, "relu"),
+    (2, 16, 48, 80, 32, 3, 2, "leaky"),   # PWCNet's k3 s2 pyramid convs
+    (1, 64, 24, 40, 32, 3, 1, "leaky"),   # PWCNet's dc_conv6
 ])
 def test_small_conv_kernel_matches_plain(rng, cuda, dtype, tol, case):
     B, C_in, H, W, C_out, k, s, act = case
@@ -144,22 +148,36 @@ def test_small_conv_kernel_matches_plain(rng, cuda, dtype, tol, case):
 
 
 @pytest.mark.cuda
-def test_small_conv_autograd_on_card(rng, cuda):
-    x = _t(rng.standard_normal((1, 3, 20, 22))).to(cuda).requires_grad_()
-    w = _t(rng.standard_normal((8, 3, 7, 7)) * 0.1).to(cuda)
-    b = _t(rng.standard_normal(8)).to(cuda)
+@pytest.mark.parametrize("case", [
+    # (C_in, H, W, C_out, k, act): RAFT's stem route; PWCNet's k3 s2
+    # pyramid convs with the leaky epilogue
+    (3, 20, 22, 8, 7, "relu"),
+    (16, 24, 40, 32, 3, "leaky"),
+])
+def test_small_conv_autograd_on_card(rng, cuda, case):
+    """Stride 2 through the autograd path: one forward and one dx launch;
+    dx is the dx kernel on the cotangent masked by the kernel's own
+    output (relu: 0 where ≤ 0; leaky: 0.1)."""
+    C_in, H, W, C_out, k, act = case
+    x = _t(rng.standard_normal((1, C_in, H, W))).to(cuda).requires_grad_()
+    w = _t(rng.standard_normal((C_out, C_in, k, k))
+           / np.sqrt(C_in * k * k)).to(cuda)
+    b = _t(rng.standard_normal(C_out)).to(cuda)
     f, d = sc.small_conv_fwd.launches, sc.small_conv_dx.launches
-    sc.small_conv2d(x, w, b, 2, "relu").square().sum().backward()
+    out = sc.small_conv2d(x, w, b, 2, act)
+    g = _t(rng.standard_normal(tuple(out.shape))).to(cuda)
+    out.backward(g)
     assert (sc.small_conv_fwd.launches, sc.small_conv_dx.launches) == (
         f + 1, d + 1)
-    xr = x.detach().requires_grad_()
-    sc.conv_plain(xr, w, b, 2, "relu").square().sum().backward()
-    _close(x.grad, xr.grad, 1e-4)
+    out = out.detach()
+    _close(out, sc.conv_plain(x.detach(), w, b, 2, act), 1e-4)
+    gm = g * torch.where(out > 0, 1.0, 0.1 if act == "leaky" else 0.0)
+    _close(x.grad, sc.conv_dx_plain(gm, w, x.shape, 2), 1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
+                                       (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("case", [
     # (B, H, W, C, patch, stride)
     (1, 6, 20, 196, 9, 1),     # PWCNet level 6 at 384×1280
@@ -207,13 +225,11 @@ def test_local_corr_autograd_on_card(rng, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["warp", "one_cell", "out_of_range"])
-def test_segsum_kernel_matches_float64(rng, cuda, dtype, case):
+def test_segsum_kernel_matches_float64(rng, cuda, case):
     """Against a float64 truth: float32 atomics add in a varying order, so
-    float32 rows are held to atol 2e-5 / rtol 2e-4 (as the JAX package's
-    segsum tests); bf16 rows come back rounded to bf16 (1e-2). Indices
-    outside [0, nrows) are skipped."""
+    the rows are held to atol 2e-5 / rtol 2e-4 (as the JAX package's
+    segsum tests). Indices outside [0, nrows) are skipped."""
     from pcfa_tpu_torch.ops import segsum as sg
 
     N, K, nrows = 7680, 256, 7889   # PWCNet's level-3 warp at 384×1280
@@ -223,7 +239,7 @@ def test_segsum_kernel_matches_float64(rng, cuda, dtype, case):
     elif case == "out_of_range":
         idx[::7] = nrows + 3
         idx[1::7] = -1
-    upd = _t(rng.standard_normal((N, K))).to(dtype)
+    upd = _t(rng.standard_normal((N, K)))
     keep = (idx >= 0) & (idx < nrows)
     want = np.zeros((nrows, K))
     np.add.at(want, idx[keep], upd.double().numpy()[keep])
@@ -231,10 +247,19 @@ def test_segsum_kernel_matches_float64(rng, cuda, dtype, case):
     got = sg.segment_rows(torch.from_numpy(idx).to(cuda), upd.to(cuda), nrows)
     torch.cuda.synchronize()
     assert sg.segment_rows_cuda.launches == before + 1
-    assert got.dtype == dtype and got.shape == (nrows, K)
-    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else dict(
-        atol=1e-2, rtol=1e-2)
-    np.testing.assert_allclose(got.double().cpu().numpy(), want, **tol)
+    assert got.dtype == torch.float32 and got.shape == (nrows, K)
+    np.testing.assert_allclose(got.double().cpu().numpy(), want, atol=2e-5,
+                               rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_segsum_kernel_takes_float32_rows_only(cuda, dtype):
+    from pcfa_tpu_torch.ops import segsum as sg
+
+    idx = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        sg.segment_rows(idx, torch.ones((4, 3), dtype=dtype, device=cuda), 2)
 
 
 @pytest.mark.cuda

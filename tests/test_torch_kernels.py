@@ -281,8 +281,6 @@ def test_local_corr_plain_matches_xla_and_pallas(rng, case):
     mode. Maps hold ≥ 1024 pixels, where the Pallas backward runs its
     kernels. float32 sums of ≤ 81·C products: 1e-5 / 1e-4."""
     from pcfa_tpu.ops.pallas.local_corr import _backward, _forward
-    from pcfa_tpu_torch.ops.correlation import (global_correlation,
-                                                local_correlation)
 
     B, H, W, C, patch, stride = case
     f1 = rng.standard_normal((B, H, W, C)).astype(np.float32)
@@ -291,16 +289,12 @@ def test_local_corr_plain_matches_xla_and_pallas(rng, case):
     j1, j2 = jnp.asarray(f1), jnp.asarray(f2)
     if stride == 1:
         xla = lambda a, b: jcorr.local_correlation(a, b, patch)  # noqa: E731
-        plain = local_correlation
-        args = (patch,)
     else:
         R = (patch - 1) // 2 * stride
         xla = lambda a, b: jcorr.global_correlation(a, b, R, stride)  # noqa
-        plain = global_correlation
-        args = (R, stride)
 
     t1, t2 = _t(f1).requires_grad_(True), _t(f2).requires_grad_(True)
-    got = plain(t1, t2, *args)
+    got = lc.local_corr_plain(t1, t2, patch, stride)
     assert got.shape == (B, H, W, patch * patch)
     ref, vjp = jax.vjp(xla, j1, j2)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
