@@ -12,9 +12,13 @@ script then exits non-zero):
 2. kernels: every kernel of the RAFT and PWCNet PCFA paths against its
    plain PyTorch version on the card, at each main path's shapes (the
    small conv at RAFT's and at all of PWCNet's, with PWCNet's leaky
-   epilogue), in float32 and bf16 (segsum: float32, the only dtype its
-   path sends), with kernel, plain-version and library-call times and the
-   bound (plus the patch correlation at FlowNetC's shape);
+   epilogue and its derivative fused into dx), in float32 and bf16 (the
+   small conv's bf16 is its tensor-core kernel, float32 its CUDA-core
+   route; segsum: float32, the only dtype its path sends), with kernel,
+   plain-version and library-call times and the bound (plus the patch
+   correlation at FlowNetC's shape). Each row says how it was timed:
+   `loop` (10 launches back to back) or, for PWCNet's short conv layers,
+   `graph` (a CUDA-graph replay: device time, warm L2);
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
    128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
    pairs, both float32, on the CPU (plain versions) and on the card
@@ -155,6 +159,35 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call of `fn` from replays of a CUDA graph of `reps`
+    calls: no host launch cost between the kernels. The inputs stay in
+    the 50 MB L2 across calls where they fit (PWCNet's maps do), so these
+    are warm-cache times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -250,16 +283,19 @@ def row_adder(rows: list):
     main path gives, such as a stress case)."""
     card = card_line()
 
-    def row(name, dtype, shape, err, ms, plain, lib, nbytes, flops, path):
+    def row(name, dtype, shape, err, ms, plain, lib, nbytes, flops, path,
+            timed="loop", loop_ms=None):
         b, by = bound_ms(nbytes, flops, dtype)
         rows.append(dict(name=name, dtype=str(dtype).split(".")[-1],
                          shape=shape, path=path, max_abs_err=err, ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b,
-                         bound_by=by, nbytes=nbytes, flops=flops))
+                         bound_by=by, nbytes=nbytes, flops=flops,
+                         timed=timed))
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
+        loop_s = "" if loop_ms is None else f" (loop {loop_ms:.4f} ms)"
         log(f"  {name:16s} {rows[-1]['dtype']:8s} {shape:34s} err {err:.3g}"
-            f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
-            f"{lib_s}  bound {b:.4f} ms ({by})  [{card}]")
+            f"  kernel {ms:.4f} ms{loop_s}  plain {plain:.4f} ms  library "
+            f"{lib_s}  bound {b:.4f} ms ({by})  timed: {timed}  [{card}]")
 
     return row
 
@@ -337,12 +373,16 @@ def kernels_raft(rows):
                       (B, c_in, h, w, c_out, k, s), None)
 
 
-def conv_rows(row, gen, dtype, tol, tag, path, conv, act):
+def conv_rows(row, gen, dtype, tol, tag, path, conv, act, graph=False):
     """One small-conv shape: the forward kernel (with `act`) against
-    `conv_plain`, and dx through the autograd path against the plain dx of
-    the same cotangent, masked by the kernel's own output for an
-    activation. Library calls: `F.conv2d` (without the epilogue) and
-    `convolution_backward`."""
+    `conv_plain`, and dx through the autograd path (the activation's
+    derivative fused into the dx kernel, taken at the kernel's own output)
+    against the plain dx of the same cotangent and output. Library calls:
+    `F.conv2d` (without the epilogue) and `convolution_backward` (of the
+    masked cotangent). Times: 10 launches back to back (`timed: loop`),
+    or with `graph` a CUDA-graph replay (`timed: graph`: device time, the
+    loop time beside it), for layers short enough that the loop runs at
+    the host's launch pace."""
     from pcfa_tpu_torch.ops import small_conv as sc
 
     B, c_in, h, w, c_out, k, s = conv
@@ -358,31 +398,39 @@ def conv_rows(row, gen, dtype, tol, tag, path, conv, act):
     flops = 2 * out.numel() * c_in * k * k
     io = (x.numel() + wt.numel() + bias.numel() + out.numel()) * isz
     shape = f"x={tuple(x.shape)} {tag}"
-    row("small_conv_fwd", dtype, shape, err,
-        cuda_ms(lambda: sc.small_conv_fwd(x, wt, bias, s, act)),
-        cuda_ms(lambda: sc.conv_plain(x, wt, bias, s, act)),
-        cuda_ms(lambda: F.conv2d(x, wt, bias, s, k // 2)), io, flops, path)
+
+    def times(kernel, plain, library):
+        if not graph:
+            return dict(ms=cuda_ms(kernel), plain=cuda_ms(plain),
+                        lib=cuda_ms(library))
+        return dict(ms=graph_ms(kernel), plain=graph_ms(plain),
+                    lib=graph_ms(library), timed="graph",
+                    loop_ms=cuda_ms(kernel))
+
+    row("small_conv_fwd", dtype, shape, err, nbytes=io, flops=flops,
+        path=path, **times(
+            lambda: sc.small_conv_fwd(x, wt, bias, s, act),
+            lambda: sc.conv_plain(x, wt, bias, s, act),
+            lambda: F.conv2d(x, wt, bias, s, k // 2)))
 
     gout = torch.randn(out.shape, generator=gen).to("cuda", dtype)
     xg = x.detach().requires_grad_(True)
     o = sc.small_conv2d(xg, wt, bias, s, act)
     o.backward(gout)
     torch.cuda.synchronize()
-    gm = gout.float()
-    if act == "leaky":
-        gm = gm * torch.where(o.detach().float() > 0, 1.0, 0.1)
-    elif act == "relu":
-        gm = gm * (o.detach() > 0)
+    od = o.detach() if act is not None else None
     err = check_close(f"conv dx {tag}", xg.grad, sc.conv_dx_plain(
-        gm, wt.float(), x.shape, s), tol)
-    gk = gm.to(dtype)
+        gout.float(), wt.float(), x.shape, s,
+        None if od is None else od.float(), act), tol)
+    gk = sc._act_grad(gout, od, act)
     row("small_conv_dx", dtype, shape, err,
-        cuda_ms(lambda: sc.small_conv_dx(gk, wt, x.shape, s)),
-        cuda_ms(lambda: sc.conv_dx_plain(gk, wt, x.shape, s)),
-        cuda_ms(lambda: torch.ops.aten.convolution_backward(
-            gk, x, wt, None, [s, s], [k // 2, k // 2], [1, 1], False,
-            [0, 0], 1, [True, False, False])),
-        (gk.numel() + wt.numel() + x.numel()) * isz, flops, path)
+        nbytes=(gout.numel() * (2 if act else 1) + wt.numel() + x.numel())
+        * isz, flops=flops, path=path, **times(
+            lambda: sc.small_conv_dx(gout, wt, x.shape, s, od, act),
+            lambda: sc.conv_dx_plain(gout, wt, x.shape, s, od, act),
+            lambda: torch.ops.aten.convolution_backward(
+                gk, x, wt, None, [s, s], [k // 2, k // 2], [1, 1], False,
+                [0, 0], 1, [True, False, False])))
 
 
 def kernels_pwc_conv(rows):
@@ -397,7 +445,7 @@ def kernels_pwc_conv(rows):
         for layers, B, c_in, h, w, c_out, s in PWC_CONVS:
             conv_rows(row, gen, dtype, tol,
                       f"{layers} k3 s{s} {c_in}->{c_out}", "PWCNet",
-                      (B, c_in, h, w, c_out, 3, s), "leaky")
+                      (B, c_in, h, w, c_out, 3, s), "leaky", graph=True)
         # the rows just added: forward, dx for each shape in turn
         sums = {}
         for i, r in enumerate(rows[-2 * len(PWC_CONVS):]):
@@ -406,12 +454,14 @@ def kernels_pwc_conv(rows):
                 ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
             for k in acc:
                 acc[k] += n * r[k]
-        log(f"# small conv, PWCNet's 11 layers per closure, {str(dtype)[6:]}: "
-            + "; ".join(f"{name} kernel {a['ms']:.4f} ms, plain "
-                        f"{a['plain_ms']:.4f} ms, library "
-                        f"{a['library_ms']:.4f} ms, bound "
-                        f"{a['bound_ms']:.4f} ms"
-                        for name, a in sums.items()) + f" [{card_line()}]")
+        slowest = max(rows[-2 * len(PWC_CONVS):], key=lambda r: r["ms"])
+        log(f"# small conv, PWCNet's 11 layers per closure, {str(dtype)[6:]}"
+            f" (graph-timed, warm L2): " + "; ".join(
+                f"{name} kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f}"
+                f" ms, library {a['library_ms']:.4f} ms, bound "
+                f"{a['bound_ms']:.4f} ms" for name, a in sums.items())
+            + f"; slowest layer {slowest['name']} {slowest['shape']} "
+            f"{slowest['ms']:.4f} ms [{card_line()}]")
 
 
 def valid_products(H: int, W: int, patch: int, stride: int) -> int:
@@ -754,7 +804,7 @@ def main() -> int:
 
     kernels = []
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "timed")
     for name, _, _, src, replaces in KERNELS:
         # per path, the row at its main-path dtype (bf16; segsum float32)
         # with the largest bound; the top-level numbers are those of the

@@ -131,20 +131,47 @@ def test_corr_lookup_autograd_on_card(rng, cuda):
     (1, 5, 15, 9, 7, 3, 2, "relu"),
     (2, 16, 48, 80, 32, 3, 2, "leaky"),   # PWCNet's k3 s2 pyramid convs
     (1, 64, 24, 40, 32, 3, 1, "leaky"),   # PWCNet's dc_conv6
+    # the tensor-core tiling's edges: C_in not a multiple of 16, C_out
+    # not a multiple of 8, M tiles cut by odd H and W, k5 in both strides,
+    # maps smaller than one tile, N = 96 split across blocks
+    (1, 16, 33, 47, 20, 5, 1, "relu"),
+    (2, 32, 29, 45, 7, 5, 2, "leaky"),
+    (1, 5, 6, 20, 96, 3, 1, "leaky"),
+    (1, 64, 6, 20, 96, 3, 2, "leaky"),    # conv4a's 64 -> 96
+    (2, 64, 48, 160, 96, 3, 2, "leaky"),  # conv4a at 384x1280
+    (1, 20, 19, 23, 3, 7, 2, "relu"),
+    # RAFT's layer1 and stem at the KITTI shape, batch cut to 1
+    (1, 64, 188, 624, 64, 3, 1, None),
+    (1, 3, 376, 1248, 64, 7, 2, None),
 ])
 def test_small_conv_kernel_matches_plain(rng, cuda, dtype, tol, case):
+    """Forward (bias, act) and dx (with the act derivative fused, from the
+    kernel's own output) against the plain versions in float32."""
     B, C_in, H, W, C_out, k, s, act = case
     x = _t(rng.standard_normal((B, C_in, H, W))).to(cuda, dtype)
     w = _t(rng.standard_normal((C_out, C_in, k, k)) / np.sqrt(C_in * k * k))
     w = w.to(cuda, dtype)
     b = _t(rng.standard_normal(C_out)).to(cuda, dtype)
+    before = (sc.small_conv_fwd.launches, sc.small_conv_dx.launches)
     out = sc.small_conv_fwd(x, w, b, s, act)
     assert out.shape == (B, C_out, -(-H // s), -(-W // s))
     _close(out, sc.conv_plain(x.float(), w.float(), b.float(), s, act), tol)
     g = _t(rng.standard_normal(tuple(out.shape))).to(cuda, dtype)
-    dx = sc.small_conv_dx(g, w, x.shape, s)
+    dx = sc.small_conv_dx(g, w, x.shape, s, out, act)
     torch.cuda.synchronize()
-    _close(dx, sc.conv_dx_plain(g.float(), w.float(), x.shape, s), tol)
+    assert dx.dtype == dtype
+    _close(dx, sc.conv_dx_plain(g.float(), w.float(), x.shape, s,
+                                out.float(), act), tol)
+    assert (sc.small_conv_fwd.launches, sc.small_conv_dx.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_small_conv_dx_needs_the_forward_output(cuda):
+    w = torch.ones((4, 3, 3, 3), device=cuda, dtype=torch.bfloat16)
+    g = torch.ones((1, 4, 5, 5), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        sc.small_conv_dx(g, w, (1, 3, 5, 5), 1, None, "leaky")
 
 
 @pytest.mark.cuda

@@ -211,28 +211,35 @@ def test_conv_plain_matches_small_conv2d(rng, monkeypatch, case):
 
 
 def test_conv_dx_plain_is_autograd(rng):
-    x = _t(rng.standard_normal((2, 3, 9, 14))).requires_grad_(True)
+    """`conv_dx_plain(g, w, x_shape, s, out, act)` is the input gradient of
+    `conv_plain(..., act)`, the activation's derivative taken at `out`."""
     w = _t(rng.standard_normal((8, 3, 7, 7)) * 0.1)
-    out = sc.conv_plain(x, w, None, 2)
-    g = _t(rng.standard_normal(tuple(out.shape)))
-    (out * g).sum().backward()
-    np.testing.assert_allclose(
-        sc.conv_dx_plain(g, w, x.shape, 2).numpy(), x.grad.numpy(),
-        atol=1e-5)
+    b = _t(rng.standard_normal(8))
+    for act in (None, "relu", "leaky"):
+        x = _t(rng.standard_normal((2, 3, 9, 14))).requires_grad_(True)
+        out = sc.conv_plain(x, w, b, 2, act)
+        g = _t(rng.standard_normal(tuple(out.shape)))
+        (out * g).sum().backward()
+        np.testing.assert_allclose(
+            sc.conv_dx_plain(g, w, x.shape, 2, out.detach(), act).numpy(),
+            x.grad.numpy(), atol=1e-5)
+    with pytest.raises(ValueError):
+        sc.conv_dx_plain(g, w, x.shape, 2, None, "relu")
 
 
 @pytest.mark.parametrize("act", [None, "relu", "leaky"])
 def test_conv_autograd_function_wiring(rng, monkeypatch, act):
-    """`_SmallConv` with its kernels swapped for the plain versions: the
-    activation mask from the saved output, dx by the dx kernel, dw/db only
-    on request."""
+    """`_SmallConv` with its kernels swapped for the plain versions: dx by
+    the dx kernel, which gets the saved output and the activation (its
+    derivative is fused there), dw/db only on request."""
     def fwd(x, w, b, s, a):
         fwd.launches += 1
         return sc.conv_plain(x, w, b, s, a)
 
-    def dx(g, w, shape, s):
+    def dx(g, w, shape, s, out, a):
         dx.launches += 1
-        return sc.conv_dx_plain(g, w, shape, s)
+        assert a == act and (out is None) == (act is None)
+        return sc.conv_dx_plain(g, w, shape, s, out, a)
 
     fwd.launches = dx.launches = 0
     monkeypatch.setattr(sc, "small_conv_fwd", fwd)
@@ -256,6 +263,84 @@ def test_conv_autograd_function_wiring(rng, monkeypatch, act):
     np.testing.assert_allclose(wa.grad.numpy(), wr.grad.numpy(), atol=1e-4)
     np.testing.assert_allclose(ba.grad.numpy(), br.grad.numpy(), atol=1e-4)
     assert dx.launches == 1  # no input gradient requested
+
+
+def _run_plan(inp, packed, plan, out_hw):
+    """The bf16 kernel's GEMMs of `plan` as plain products: per GEMM class
+    and tap, the (strided) window of the channel-padded input times that
+    tap's packed [c][n] weights, stored at the class's pixels."""
+    B, C, _, _ = inp.shape
+    kc, bn, S = plan.kc, 8 * plan.nf, plan.S
+    nchunk = -(-C // kc)
+    xp = torch.nn.functional.pad(inp, (8, 8 + S * out_hw[1], 8,
+                                       8 + S * out_hw[0], 0,
+                                       nchunk * kc - C))
+    out = torch.zeros((B, plan.groups * bn, *out_hw), dtype=inp.dtype)
+    for c, off in zip(plan.classes, plan.woffs):
+        n = plan.groups * nchunk * c.ty * c.tx * kc * bn
+        wk = packed[off:off + n].reshape(plan.groups, nchunk, c.ty, c.tx, kc,
+                                         bn)
+        wk = wk.permute(2, 3, 1, 4, 0, 5).reshape(c.ty, c.tx, nchunk * kc,
+                                                  plan.groups * bn)
+        acc = 0
+        for jy in range(c.ty):
+            for jx in range(c.tx):
+                y0, x0 = 8 + c.by + jy, 8 + c.bx + jx
+                win = xp[:, :, y0:y0 + S * c.hc:S, x0:x0 + S * c.wc:S]
+                acc = acc + torch.einsum("bchw,cn->bnhw", win, wk[jy, jx])
+        out[:, :, c.py::plan.OS, c.px::plan.OS][:, :, :c.hc, :c.wc] = acc
+    return out[:, :plan.N]
+
+
+@pytest.mark.parametrize("case", [
+    # (B, C_in, H, W, C_out, k, stride)
+    (1, 3, 9, 13, 20, 7, 2),      # stem class: k8 steps, 4 dx classes
+    (2, 20, 11, 10, 7, 3, 2),     # two 16-channel chunks, odd sizes
+    (1, 5, 8, 9, 70, 5, 1),       # N split across blocks (3 groups)
+    (1, 17, 7, 12, 3, 5, 2),      # k5 stride 2
+    (1, 6, 1, 5, 8, 3, 2),        # H = 1: dx's odd-row classes are empty
+])
+def test_conv_packed_weights_run_as_plain_gemm(rng, case):
+    """The bf16 kernel's plan and packed weights, run as plain float64
+    products per GEMM class (each dx parity class included), give
+    `conv_plain` and `conv_dx_plain`: the tap sets, offsets, flips and
+    channel transposes the kernel is handed are those of the conv."""
+    B, C_in, H, W, C_out, k, s = case
+    x = torch.from_numpy(rng.standard_normal((B, C_in, H, W)))
+    w = torch.from_numpy(rng.standard_normal((C_out, C_in, k, k)))
+    out = sc.conv_plain(x, w, None, s)
+    plan = sc._plan("fwd", x.shape, C_out, k, s)
+    got = _run_plan(x, sc._pack_weights(w, plan), plan, out.shape[2:])
+    np.testing.assert_allclose(got.numpy(), out.numpy(), atol=1e-10)
+
+    g = torch.from_numpy(rng.standard_normal(tuple(out.shape)))
+    plan = sc._plan("dx", x.shape, C_out, k, s)
+    assert len(plan.classes) == (1 if s == 1 else 4 if H > 1 else 2)
+    got = _run_plan(g, sc._pack_weights(w, plan), plan, (H, W))
+    np.testing.assert_allclose(got.numpy(),
+                               sc.conv_dx_plain(g, w, x.shape, s).numpy(),
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_conv_plans_fill_the_card_at_main_path_shapes(kind):
+    """Every main-path conv (RAFT's stem and layer1, PWCNet's 11 layers)
+    plans ≥ 2 × 132 blocks within a block's shared memory, and each dx
+    class of a k7 stride-2 conv has the 4×4 / 4×3 / 3×4 / 3×3 taps."""
+    shapes = [((4, 3, 376, 1248), 64, 7, 2), ((4, 64, 188, 624), 64, 3, 1),
+              ((2, 3, 384, 1280), 16, 3, 2), ((2, 16, 192, 640), 16, 3, 1),
+              ((2, 16, 192, 640), 32, 3, 2), ((2, 32, 96, 320), 32, 3, 1),
+              ((2, 32, 96, 320), 64, 3, 2), ((2, 64, 48, 160), 64, 3, 1),
+              ((2, 64, 48, 160), 96, 3, 2), ((1, 64, 96, 320), 32, 3, 1)]
+    for x_shape, c_out, k, s in shapes:
+        for masked in ((False, True) if kind == "dx" else (False,)):
+            plan = sc._plan(kind, x_shape, c_out, k, s, masked)
+            assert plan.blocks >= sc._MIN_BLOCKS, (x_shape, plan)
+            assert plan.smem <= sc._SMEM_MAX
+    if kind == "dx":
+        plan = sc._plan("dx", (1, 3, 20, 22), 8, 7, 2)
+        assert [(c.ty, c.tx) for c in plan.classes] == [(3, 3), (3, 4),
+                                                        (4, 3), (4, 4)]
 
 
 def test_conv_cpu_dispatch_is_plain(rng):
