@@ -16,9 +16,11 @@ script then exits non-zero):
    small conv's bf16 is its tensor-core kernel, float32 its CUDA-core
    route; segsum: float32, the only dtype its path sends), with kernel,
    plain-version and library-call times and the bound (plus the patch
-   correlation at FlowNetC's shape). Each row says how it was timed:
-   `loop` (10 launches back to back) or, for PWCNet's short conv layers,
-   `graph` (a CUDA-graph replay: device time, warm L2);
+   correlation at FlowNetC's shape). Each row says how its kernel and
+   library times were taken: `loop` (10 launches back to back) or `graph`
+   (a CUDA-graph replay: device time, warm L2, the loop time beside it),
+   which every kernel row of the lookup, PWCNet's convs, the patch
+   correlation and segsum uses;
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
    128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
    pairs, both float32, on the CPU (plain versions) and on the card
@@ -335,15 +337,15 @@ def kernels_raft(rows):
         # grid_sample needs its grid in the map's dtype: a bf16 grid rounds
         # pixel positions, so in bf16 it is a timing yardstick only
         grids = [gr.to(dtype) for gr in grid_sample_lookup(levels, coords)]
-        lib = cuda_ms(lambda: [F.grid_sample(
+        lib = graph_ms(lambda: [F.grid_sample(
             lv[:, None], g, mode="bilinear", padding_mode="zeros",
             align_corners=True) for lv, g in zip(levels, grids)])
         cells = lookup_patch_cells(levels, coords)
-        row("corr_lookup_fwd", dtype, shape, err,
-            cuda_ms(lambda: cl.corr_window_fwd(levels, coords, R)),
+        fwd = lambda: cl.corr_window_fwd(levels, coords, R)  # noqa: E731
+        row("corr_lookup_fwd", dtype, shape, err, graph_ms(fwd),
             cuda_ms(lambda: cl.corr_window_plain(levels, coords, R)), lib,
             cells * isz + coords.numel() * 4 + out.numel() * isz,
-            3 * 3 * out.numel(), "RAFT")
+            3 * 3 * out.numel(), "RAFT", "graph", cuda_ms(fwd))
         g = torch.randn(out.shape, generator=gen).to("cuda", dtype)
         got = cl.corr_window_bwd(g, levels, coords, R)
         ref = cl.corr_window_bwd_plain(g, levels, coords, R)
@@ -354,16 +356,16 @@ def kernels_raft(rows):
         p = 2 * R + 1
         gs = [g[:, i * p * p:(i + 1) * p * p].reshape(n, 1, p, p)
               for i in range(len(levels))]
-        lib = cuda_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
+        lib = graph_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
             gl, lv[:, None], gr, 0, 0, True, [True, False])
             for gl, lv, gr in zip(gs, levels, grids)], reps=5)
         dmap_elems = sum(lv.numel() for lv in levels)
-        row("corr_lookup_bwd", dtype, shape, err,
-            cuda_ms(lambda: cl.corr_window_bwd(g, levels, coords, R), reps=5),
+        bwd = lambda: cl.corr_window_bwd(g, levels, coords, R)  # noqa: E731
+        row("corr_lookup_bwd", dtype, shape, err, graph_ms(bwd, reps=5),
             cuda_ms(lambda: cl.corr_window_bwd_plain(g, levels, coords, R),
                     reps=5), lib,
             g.numel() * isz + coords.numel() * 4 + dmap_elems * isz,
-            4 * 3 * cells, "RAFT")
+            4 * 3 * cells, "RAFT", "graph", cuda_ms(bwd, reps=5))
         del levels, g, grids, gs, out
 
         for tag, (B, c_in, h, w, c_out, k, s) in (
@@ -475,11 +477,15 @@ def valid_products(H: int, W: int, patch: int, stride: int) -> int:
 
 def kernels_local_corr(rows):
     """Patch correlation, forward and backward, at every PWCNet level at
-    384×1280 (B = 1, patch 9) and the forward at FlowNetC's shape (patch 21,
-    stride 2). No single PyTorch call computes it: library_ms is null.
-    Kernel and plain version sum the same float32 products in another
-    order (float32: 1e-4) and each rounds once to bf16 (one bf16 ulp, at
-    most 2⁻⁷ of a value: 1e-2), relative to the largest plain value."""
+    384×1280 (B = 1, patch 9) and at FlowNetC's shape (patch 21, stride
+    2), float32 and bf16. Kernel times are device times by CUDA-graph
+    replay (the loop time beside them); the plain versions are loop-timed.
+    No single PyTorch call computes it: library_ms is null. Kernel and
+    plain version sum the same float32 products in another order (float32:
+    1e-4) and each rounds once to bf16 (one bf16 ulp, at most 2⁻⁷ of a
+    value: 1e-2), relative to the largest plain value. Prints each time
+    summed over the five levels, as one closure runs them (each level's
+    forward and backward once)."""
     from pcfa_tpu_torch.ops import local_corr as lc
 
     gen = torch.Generator().manual_seed(1)
@@ -499,26 +505,37 @@ def kernels_local_corr(rows):
             shape = f"{tag} {PWC_PAIRS}x{h}x{w}x{c} p{patch} s{stride}"
             path = "FlowNetC" if tag == "FlowNetC" else "PWCNet"
             prods = PWC_PAIRS * valid_products(h, w, patch, stride) * c
-            row("local_corr_fwd", dtype, shape, err,
-                cuda_ms(lambda: lc.local_corr_fwd(f1, f2, patch, stride)),
+            fwd = lambda: lc.local_corr_fwd(f1, f2, patch, stride)  # noqa
+            row("local_corr_fwd", dtype, shape, err, graph_ms(fwd),
                 cuda_ms(lambda: lc.local_corr_plain(f1, f2, patch, stride),
                         reps=3), None,
                 (f1.numel() + f2.numel() + out.numel()) * isz, 2 * prods,
-                path)
-            if tag == "FlowNetC":  # slice F wires its backward
-                continue
+                path, "graph", cuda_ms(fwd))
             g = torch.randn(out.shape, generator=gen).to("cuda", dtype)
             got = lc.local_corr_bwd(g, f1, f2, patch, stride)
             ref = lc.local_corr_bwd_plain(g, f1, f2, patch, stride)
             torch.cuda.synchronize()
             err = max(check_close(f"local corr bwd {tag} {i}", a, b, tol)
                       for i, (a, b) in enumerate(zip(got, ref)))
-            row("local_corr_bwd", dtype, shape, err,
-                cuda_ms(lambda: lc.local_corr_bwd(g, f1, f2, patch, stride)),
+            bwd = lambda: lc.local_corr_bwd(g, f1, f2, patch, stride)  # noqa
+            row("local_corr_bwd", dtype, shape, err, graph_ms(bwd),
                 cuda_ms(lambda: lc.local_corr_bwd_plain(g, f1, f2, patch,
                                                         stride), reps=3),
-                None, (g.numel() + 4 * f1.numel()) * isz, 4 * prods, path)
+                None, (g.numel() + 4 * f1.numel()) * isz, 4 * prods, path,
+                "graph", cuda_ms(bwd))
             del f1, f2, out, g, got, ref
+        # the rows just added: forward, backward for each shape in turn
+        pwc = [r for r in rows[-2 * len(shapes):] if r["path"] == "PWCNet"]
+        sums = {k: {n: sum(r[k] for r in pwc if r["name"] == n)
+                    for n in ("local_corr_fwd", "local_corr_bwd")}
+                for k in ("ms", "plain_ms", "bound_ms")}
+        log(f"# patch correlation, PWCNet's five levels per closure, "
+            f"{str(dtype)[6:]} (graph-timed, warm L2): " + "; ".join(
+                f"{n} kernel {sums['ms'][n]:.4f} ms, plain "
+                f"{sums['plain_ms'][n]:.4f} ms, bound "
+                f"{sums['bound_ms'][n]:.4f} ms" for n in sums["ms"])
+            + f"; fwd + bwd kernel {sum(sums['ms'].values()):.4f} ms, bound "
+            f"{sum(sums['bound_ms'].values()):.4f} ms [{card_line()}]")
 
 
 def kernels_segsum(rows):
@@ -555,14 +572,15 @@ def kernels_segsum(rows):
         torch.cuda.synchronize()
         err = check_close(f"segsum {tag}", out,
                           sg.segment_rows_plain(idx, upd, nrows), tol)
+        kernel = lambda: sg.segment_rows_cuda(idx, upd, nrows)  # noqa: E731
         row("segsum", dtype, f"{tag} N={n} K={k} nrows={nrows}", err,
-            cuda_ms(lambda: sg.segment_rows_cuda(idx, upd, nrows)),
+            graph_ms(kernel),
             cuda_ms(lambda: sg.segment_rows_plain(idx, upd, nrows)),
-            cuda_ms(lambda: torch.zeros((nrows, k), dtype=dtype,
-                                        device="cuda").index_add_(
-                                            0, idx, upd)),
+            graph_ms(lambda: torch.zeros((nrows, k), dtype=dtype,
+                                         device="cuda").index_add_(
+                                             0, idx, upd)),
             n * k * isz + n * 8 + nrows * k * isz, n * k,
-            None if collide else "PWCNet")
+            None if collide else "PWCNet", "graph", cuda_ms(kernel))
         del idx, upd, out
 
 

@@ -208,12 +208,20 @@ def test_small_conv_autograd_on_card(rng, cuda, case):
 @pytest.mark.parametrize("case", [
     # (B, H, W, C, patch, stride)
     (1, 6, 20, 196, 9, 1),     # PWCNet level 6 at 384×1280
+    (1, 12, 40, 128, 9, 1),    # level 5
     (1, 24, 80, 96, 9, 1),     # level 4
+    (2, 48, 160, 64, 9, 1),    # level 3, B = 2
+    (1, 96, 320, 32, 9, 1),    # level 2
     (2, 7, 45, 33, 5, 1),      # odd sizes, ragged channel chunk
+    (1, 9, 37, 12, 9, 1),      # W not a multiple of the tile, C % 8 != 0
     (1, 2, 3, 5, 9, 1),        # map smaller than the patch
     (1, 20, 40, 256, 21, 2),   # FlowNetC's patch and stride
+    (1, 48, 160, 256, 21, 2),  # FlowNetC at 384×1280
 ])
 def test_local_corr_kernel_matches_plain(rng, cuda, dtype, tol, case):
+    """Forward and backward (df1, df2) against the plain versions, each
+    kernel launched once; tolerances relative to the plain result's
+    largest magnitude (bf16: one rounding of the float32 sum)."""
     from pcfa_tpu_torch.ops import local_corr as lc
 
     B, H, W, C, patch, stride = case
@@ -236,6 +244,42 @@ def test_local_corr_kernel_matches_plain(rng, cuda, dtype, tol, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("field,bad", [
+    ("stage_bytes", lambda v: v // 32 * 16),   # halo rows past the buffer
+    ("smem", lambda v: v // 32 * 16),          # tiles past the allocation
+    ("gz", lambda v: v + 2),                   # an image that is not there
+    ("gx", lambda v: 1),                       # columns left unwritten
+    ("pitch", lambda v: v // 32 * 16),         # channels past a pixel
+])
+def test_local_corr_kernel_refuses_an_inconsistent_plan(rng, cuda, kind,
+                                                        field, bad):
+    """The C entry points check the plan's grid and shared-memory layout
+    against what the kernels index, and refuse a plan that would run past
+    them, instead of reading or writing out of bounds."""
+    from pcfa_tpu_torch.ops import local_corr as lc
+
+    shape, esz = (1, 24, 80, 96), 2
+    f1, f2 = (_t(rng.standard_normal(shape)).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    g = _t(rng.standard_normal(shape[:3] + (81,))).to(cuda, torch.bfloat16)
+    plan = lc._plan(kind, *shape, 9, 1, esz)
+    plan = plan._replace(**{field: bad(getattr(plan, field))})
+    ints = [getattr(plan, f) for f in lc.PLAN_FIELDS]
+    key = (kind, shape, 9, 1, esz)
+    lc._plans[key] = (plan, (lc._I * len(ints))(*ints))
+    try:
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            if kind == "fwd":
+                lc.local_corr_fwd(f1, f2, 9, 1)
+            else:
+                lc.local_corr_bwd(g, f1, f2, 9, 1)
+    finally:
+        lc._plans.pop(key)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_local_corr_autograd_on_card(rng, cuda):
     from pcfa_tpu_torch.ops import local_corr as lc
 
@@ -249,6 +293,45 @@ def test_local_corr_autograd_on_card(rng, cuda):
     lc.local_corr_plain(r1, r2, 9, 1).square().sum().backward()
     _close(f1.grad, r1.grad, 1e-4)
     _close(f2.grad, r2.grad, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_local_corr_cotangent_through_pwcnet_epilogue(rng, cuda, dtype, tol,
+                                                      monkeypatch):
+    """As on PWCNet's path (`models/pwcnet.py`, `_correlate`): the
+    correlation's cotangent comes back through the leaky ReLU and the
+    permute to NCHW and a concatenation. It reaches the backward kernel
+    contiguous (no copy), and both map gradients match the plain ones."""
+    from pcfa_tpu_torch.models.pwcnet import PWCDCNet
+    from pcfa_tpu_torch.ops import local_corr as lc
+
+    seen = []
+    kernel = lc.local_corr_bwd
+
+    def bwd(g, *args):
+        seen.append(g.is_contiguous())
+        return kernel(g, *args)
+
+    bwd.launches = 0  # the kernel's wrapper counts on the patched name
+    monkeypatch.setattr(lc, "local_corr_bwd", bwd)
+    f1, f2 = (_t(rng.standard_normal((1, 24, 80, 96))).to(cuda, dtype)
+              for _ in range(2))
+    up = _t(rng.standard_normal((1, 2, 24, 80))).to(cuda, dtype)
+    w = _t(rng.standard_normal((1, 81 + 96 + 2, 24, 80))).to(cuda, dtype)
+    grads = []
+    for corr in (lc.local_corr, lambda a, b, p, s: lc.local_corr_plain(
+            a, b, p, s)):
+        a, b = (t.detach().requires_grad_() for t in (f1, f2))
+        monkeypatch.setattr("pcfa_tpu_torch.models.pwcnet.local_corr", corr)
+        x = torch.cat([PWCDCNet._correlate(None, a, b),
+                       a.permute(0, 3, 1, 2), up], dim=1)
+        (x * w).sum().backward()
+        grads.append((a.grad, b.grad))
+    assert seen == [True]
+    for got, ref in zip(*grads):
+        _close(got, ref, tol)
 
 
 @pytest.mark.cuda

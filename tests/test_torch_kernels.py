@@ -8,6 +8,7 @@ and `chip_smoke.py`."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -454,6 +455,271 @@ def test_local_corr_cpu_dispatch_is_plain(rng):
     np.testing.assert_array_equal(lc.local_corr(f1, f1, 9, 1).numpy(),
                                   lc.local_corr_plain(f1, f1, 9, 1).numpy())
     assert (lc.local_corr_fwd.launches, lc.local_corr_bwd.launches) == before
+
+
+
+def _take(f, b, ys, xs):
+    """f[b] at rows ys × columns xs, zero outside the map (a staged tile)."""
+    H, W = f.shape[1:3]
+    ys, xs = torch.tensor(list(ys)), torch.tensor(list(xs))
+    t = f[b][ys.clamp(0, H - 1)][:, xs.clamp(0, W - 1)]
+    ok = ((ys >= 0) & (ys < H))[:, None, None] & ((xs >= 0)
+                                                   & (xs < W))[None, :, None]
+    return t * ok
+
+
+def _blocks(plan, H, S):
+    """(x0, ybase) of every block of `plan`: x tiles, then row classes
+    (stride rows interleave) and row tiles."""
+    for by in range(plan.gy):
+        cls, ty = by % S, by // S
+        for bx in range(plan.gx):
+            yield bx * 16 * plan.mf, cls + S * ty * plan.th
+
+
+def _band(d, patch, S):
+    """The kernels' band rule: offset d is shift d / S when whole, in
+    [0, patch)."""
+    return (d >= 0) & (d % S == 0) & (d // S < patch)
+
+
+def _emulate_fwd(plan, f1, f2, patch, S):
+    """The forward kernel's blocks as plain float64 products: each block's
+    zero-filled f1 tile and halo rows, per (row, shift row, 16-pixel
+    fragment) and channel chunk the 16 × 8·nf product, of which the band
+    goes to the block's out tile; every output element written once."""
+    B, H, W, C = f1.shape
+    rad, tw, kc = (patch - 1) // 2 * S, 16 * plan.mf, plan.kc
+    pad = (0, plan.nchunk * kc - C)
+    f1, f2 = F.pad(f1, pad), F.pad(f2, pad)
+    xi, hc = torch.meshgrid(torch.arange(16), torch.arange(8 * plan.nf),
+                            indexing="ij")
+    band = _band(hc - xi, patch, S)
+    ix = ((hc - xi) // S)[band]
+    ysplit = -(-patch // plan.pb)
+    out = torch.full((B, H, W, patch * patch), float("nan"), dtype=f1.dtype)
+    for bz in range(plan.gz):
+        b, iy0 = bz // ysplit, (bz % ysplit) * plan.pb
+        pbe = min(plan.pb, patch - iy0)
+        for x0, ybase in _blocks(plan, H, S):
+            hy0 = ybase + iy0 * S - rad
+            a = _take(f1, b, [ybase + r * S for r in range(plan.th)],
+                      range(x0, x0 + tw))
+            halo = _take(f2, b, [hy0 + h * S for h in
+                                 range(plan.th + pbe - 1)],
+                         range(x0 - rad, x0 - rad + plan.hws))
+            ot = torch.zeros((plan.th, tw, pbe, patch), dtype=f1.dtype)
+            for k in range(plan.nchunk):
+                ch = slice(k * kc, (k + 1) * kc)
+                for r in range(plan.th):
+                    for iyl in range(pbe):
+                        for m in range(plan.mf):
+                            px = slice(16 * m, 16 * m + 16)
+                            prod = a[r, px, ch] @ halo[
+                                r + iyl, 16 * m:16 * m + 8 * plan.nf, ch].T
+                            ot[r, px, iyl].index_put_(
+                                (xi[band], ix), prod[band], accumulate=True)
+            for r in range(plan.th):
+                y, n = ybase + r * S, min(tw, W - x0)
+                if y < H:
+                    out[b, y, x0:x0 + n, iy0 * patch:(iy0 + pbe) * patch] = (
+                        ot[r, :n].reshape(n, -1) / C)
+    return out
+
+
+def _stage_g(plan, g, b, which, x0, ybase, patch, S, esz):
+    """The backward kernel's staged g (`bwd_stage_g`), flat, NaN where
+    nothing is staged. Rows (df1: the block's th rows; df2 with gmode 1:
+    the th + patch − 1 halo rows) sit `gcap` elements apart, each shifted
+    so that it agrees with its source modulo 16 bytes, counted from the
+    start of g (the image's offset included); gmode 0 stages, per output
+    row r and shift row iy, the P entries of each halo pixel."""
+    B, H, W, P2 = g.shape
+    rad, tw, V = (patch - 1) // 2 * S, 16 * plan.mf, 16 // esz
+    gs = torch.full((plan.g_bytes // esz,), float("nan"), dtype=g.dtype)
+    if which == 0 or plan.gmode == 1:
+        ys = ([ybase + r * S for r in range(plan.th)] if which == 0 else
+              [ybase - rad + h * S for h in range(plan.rows)])
+        xs, npx = (x0, tw) if which == 0 else (x0 - rad, plan.hws)
+        for i, y in enumerate(ys):
+            span = _take(g, b, [y], range(xs, xs + npx)).reshape(-1)
+            shift = ((b * H + y) * W + xs) * P2 % V
+            row = torch.zeros(plan.gcap, dtype=g.dtype)
+            row[shift:shift + span.numel()] = span
+            gs[i * plan.gcap:(i + 1) * plan.gcap] = row
+        return gs
+    run = plan.hws * patch
+    for r in range(plan.th):
+        for iy in range(patch):
+            yy = ybase + (r + patch - 1 - iy) * S - rad
+            t = _take(g, b, [yy], range(x0 - rad, x0 - rad + plan.hws))[0]
+            q = r * patch + iy
+            gs[q * run:(q + 1) * run] = t[:, iy * patch:(iy + 1)
+                                           * patch].reshape(-1)
+    return gs
+
+
+def _g_base(plan, which, x0, ybase, r, iy, h, patch, S, esz, W, b, H):
+    """Where shift row iy's g values for output row r start in the staged
+    g, and the distance between neighbouring pixels there (`g_base`)."""
+    rad, P2, V = (patch - 1) // 2 * S, patch * patch, 16 // esz
+    if which == 0 or plan.gmode == 1:
+        y, xs, i = ((ybase + r * S, x0, r) if which == 0 else
+                    (ybase + h * S - rad, x0 - rad, h))
+        return i * plan.gcap + ((b * H + y) * W + xs) * P2 % V + iy * patch, P2
+    return (r * patch + iy) * plan.hws * patch, patch
+
+
+def _emulate_bwd(plan, g, f1, f2, patch, S, esz):
+    """The backward kernel's blocks as plain float64 products: per block
+    (df1 or df2, channel group, tile) g staged as the kernel stages it and
+    the halo rows, and per (row, 16-pixel fragment) the sum over shift rows
+    and 16-column k steps of the g band, read from the staged g at the
+    kernel's offsets, times the halo; every gradient element written
+    once."""
+    B, H, W, C = f1.shape
+    rad, tw, kc = (patch - 1) // 2 * S, 16 * plan.mf, plan.kc
+    pad = (0, plan.nchunk * kc - C)
+    feats = F.pad(f2, pad), F.pad(f1, pad)
+    xi, hc = torch.meshgrid(torch.arange(16), torch.arange(16 * plan.nf),
+                            indexing="ij")
+    grads = [torch.full((B, H, W, C), float("nan"), dtype=f1.dtype)
+             for _ in range(2)]
+    for z in range(plan.gz):
+        which, b = z & 1, (z >> 1) // plan.cgroups
+        d = hc - xi if which == 0 else xi + 2 * rad - hc
+        band = _band(d, patch, S)
+        ix = torch.where(band, d // S, 0)
+        for x0, ybase in _blocks(plan, H, S):
+            hy0 = ybase - rad
+            halo = _take(feats[which], b, [hy0 + h * S for h in
+                                           range(plan.rows)],
+                         range(x0 - rad, x0 - rad + plan.hws))
+            gs = _stage_g(plan, g, b, which, x0, ybase, patch, S, esz)
+            for k in range((z >> 1) % plan.cgroups, plan.nchunk,
+                           plan.cgroups):
+                ch = slice(k * kc, (k + 1) * kc)
+                for r in range(plan.th):
+                    y = ybase + r * S
+                    if y >= H:
+                        continue
+                    for m in range(plan.mf):
+                        acc = 0
+                        for iy in range(patch):
+                            h = r + iy if which == 0 else r + patch - 1 - iy
+                            if not 0 <= hy0 + h * S < H:
+                                continue
+                            base, gps = _g_base(plan, which, x0, ybase, r,
+                                                iy, h, patch, S, esz, W, b, H)
+                            px = 16 * m + (xi if which == 0 else hc)
+                            a = torch.where(band, gs[torch.where(
+                                band, base + px * gps + ix, 0)], 0.0)
+                            acc = acc + a @ halo[h, 16 * m:16 * m
+                                                 + 16 * plan.nf, ch]
+                        n, c1 = min(16, W - x0 - 16 * m), min(C, k * kc + kc)
+                        if n > 0:
+                            grads[which][b, y, x0 + 16 * m:x0 + 16 * m + n,
+                                         k * kc:c1] = (
+                                acc[:n, :c1 - k * kc] / C)
+    return grads
+
+
+# (B, H, W, C, patch, stride); between them, the plans that
+# `_emulated_plans` picks take every branch `_LC_BRANCHES` names
+_LC_CASES = [
+    (1, 6, 20, 196, 9, 1),     # PWCNet level 6: C not a multiple of 16
+    (2, 7, 45, 33, 5, 1),      # odd sizes, ragged chunk, W % 16 != 0
+    (1, 2, 3, 5, 9, 1),        # map smaller than the patch
+    (1, 9, 36, 24, 21, 2),     # FlowNetC's patch and stride
+    (2, 13, 50, 40, 9, 1),     # several row tiles; the second image's g
+]
+# what a plan does, by kind: the branches of the kernels' tiling and
+# staging that the emulation models (how warps share a product's k steps
+# or channel groups, and buffering, leave the sums as they are)
+_LC_BRANCHES = {
+    "fwd": {"th > 1": lambda p, P: p.th > 1, "mf = 2": lambda p, P: p.mf == 2,
+            "shift rows split": lambda p, P: p.pb < P,
+            "channel chunks": lambda p, P: p.nchunk > 1},
+    "bwd": {"th > 1": lambda p, P: p.th > 1, "mf = 2": lambda p, P: p.mf == 2,
+            "g rows (gmode 1)": lambda p, P: p.gmode == 1,
+            "g runs (gmode 0)": lambda p, P: p.gmode == 0,
+            "channel groups": lambda p, P: p.cgroups > 1,
+            "chunks per block": lambda p, P: p.nchunk > p.cgroups},
+}
+
+
+def _emulated_plans(kind, case, esz, most=4):
+    """The plan `_plan` picks, then candidates of `_candidates`, in rank
+    order, that take a branch none of those before took."""
+    B, H, W, C, patch, stride = case
+    ranked = sorted(lc._candidates(kind, B, H, W, C, patch, stride, esz),
+                    key=lambda kp: kp[0])
+    picked, seen = [], set()
+    for _, plan in ranked:
+        took = {n for n, f in _LC_BRANCHES[kind].items() if f(plan, patch)}
+        if not picked or took - seen:
+            picked.append(plan)
+            seen |= took
+        if len(picked) == most:
+            break
+    assert picked[0] == lc._plan(kind, B, H, W, C, patch, stride, esz)
+    return picked
+
+
+@pytest.mark.parametrize("case", _LC_CASES)
+@pytest.mark.parametrize("esz", [2, 4])
+def test_local_corr_plans_run_as_banded_products(rng, case, esz):
+    """The kernels' plans (bf16 and float32; the planned one and others
+    that take other branches), run block by block as plain float64 banded
+    products with the kernels' tiling, band rule (the stride-2 even
+    offsets included), staged g and ragged edges, give `local_corr_plain`
+    and `local_corr_bwd_plain`, and write every output element once."""
+    B, H, W, C, patch, stride = case
+    f1, f2 = (torch.from_numpy(rng.standard_normal((B, H, W, C)))
+              for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((B, H, W, patch * patch)))
+    ref = lc.local_corr_plain(f1, f2, patch, stride).numpy()
+    for plan in _emulated_plans("fwd", case, esz):
+        got = _emulate_fwd(plan, f1, f2, patch, stride)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-12,
+                                   err_msg=str(plan))
+    refs = lc.local_corr_bwd_plain(g, f1, f2, patch, stride)
+    for plan in _emulated_plans("bwd", case, esz):
+        got = _emulate_bwd(plan, g, f1, f2, patch, stride, esz)
+        for a, b in zip(got, refs):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12,
+                                       err_msg=str(plan))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_local_corr_emulated_plans_take_every_branch(kind):
+    """Between them, the plans that the banded-product test emulates take
+    every branch of `_LC_BRANCHES`, in bf16."""
+    took = {n for case in _LC_CASES for plan in _emulated_plans(kind, case, 2)
+            for n, f in _LC_BRANCHES[kind].items() if f(plan, case[4])}
+    assert took == set(_LC_BRANCHES[kind])
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_local_corr_plans_fill_the_card(kind):
+    """bf16 at 384×1280, B = 1: PWCNet's levels 2–4 and FlowNetC launch at
+    least one block per SM; the forward of the small levels 5–6 splits
+    each product's channels across the block's warps where it has fewer
+    blocks, the backward splits their channels across blocks. Every plan
+    fits a block's shared memory and the grid's limits."""
+    levels = [(6, 20, 196, 9, 1), (12, 40, 128, 9, 1), (24, 80, 96, 9, 1),
+              (48, 160, 64, 9, 1), (96, 320, 32, 9, 1), (48, 160, 256, 21, 2)]
+    for H, W, C, patch, stride in levels:
+        plan = lc._plan(kind, 1, H, W, C, patch, stride, 2)
+        assert plan.smem <= lc._SMEM_MAX and plan.gy <= 65535, plan
+        if kind == "fwd" and plan.blocks < lc._SMS:
+            assert H <= 12, plan
+            warps = plan.th * plan.pb * plan.mf * plan.ksplit
+            assert warps >= plan.threads // 32, plan
+        else:
+            assert plan.blocks >= lc._SMS, (H, plan)
+        if kind == "bwd" and H <= 12:
+            assert plan.cgroups > 1, plan
 
 
 # ---------------------------------------------------------- segsum ---
