@@ -16,7 +16,11 @@ script then exits non-zero):
    small conv's bf16 is its tensor-core kernel, float32 its CUDA-core
    route; segsum: float32, the only dtype its path sends), with kernel,
    plain-version and library-call times and the bound (plus the patch
-   correlation at FlowNetC's shape). Each row says how its kernel and
+   correlation at FlowNetC's shape). The lookup's backward adds into
+   buffers the caller owns: it is held against the plain accumulating
+   backward over 4 launches, and a `corr_lookup_closure` row checks and
+   times what one RAFT closure does with the lookup (the pyramid, 12
+   lookups, their backward through autograd). Each row says how its kernel and
    library times were taken: `loop` (10 launches back to back) or `graph`
    (a CUDA-graph replay: device time, warm L2, the loop time beside it),
    which every kernel row of the lookup, PWCNet's convs, the patch
@@ -313,8 +317,6 @@ def phase_kernels():
 
 
 def kernels_raft(rows):
-    from pcfa_tpu_torch.ops import corr_lookup as cl
-
     gen = torch.Generator().manual_seed(0)
     row = row_adder(rows)
 
@@ -326,53 +328,155 @@ def kernels_raft(rows):
         "bf16 3e-2, relative to the values' scale)")
     for dtype, tol_l, tol_c in ((torch.float32, 1e-4, 1e-4),
                                 (torch.bfloat16, 3e-2, 3e-2)):
-        isz = torch.empty((), dtype=dtype).element_size()
-        levels, coords = kitti_lookup_inputs(dtype, gen)
-        n = coords.shape[0]
-        shape = f"N={n} L=4 r=4 (47x156..5x19)"
-        out = cl.corr_window_fwd(levels, coords, R)
-        torch.cuda.synchronize()
-        err = check_close("corr lookup fwd", out,
-                          cl.corr_window_plain(levels, coords, R), tol_l)
-        # grid_sample needs its grid in the map's dtype: a bf16 grid rounds
-        # pixel positions, so in bf16 it is a timing yardstick only
-        grids = [gr.to(dtype) for gr in grid_sample_lookup(levels, coords)]
-        lib = graph_ms(lambda: [F.grid_sample(
-            lv[:, None], g, mode="bilinear", padding_mode="zeros",
-            align_corners=True) for lv, g in zip(levels, grids)])
-        cells = lookup_patch_cells(levels, coords)
-        fwd = lambda: cl.corr_window_fwd(levels, coords, R)  # noqa: E731
-        row("corr_lookup_fwd", dtype, shape, err, graph_ms(fwd),
-            cuda_ms(lambda: cl.corr_window_plain(levels, coords, R)), lib,
-            cells * isz + coords.numel() * 4 + out.numel() * isz,
-            3 * 3 * out.numel(), "RAFT", "graph", cuda_ms(fwd))
-        g = torch.randn(out.shape, generator=gen).to("cuda", dtype)
-        got = cl.corr_window_bwd(g, levels, coords, R)
-        ref = cl.corr_window_bwd_plain(g, levels, coords, R)
-        torch.cuda.synchronize()
-        err = max(check_close("corr lookup bwd", a, b, tol_l)
-                  for a, b in zip(got, ref))
-        del got, ref
-        p = 2 * R + 1
-        gs = [g[:, i * p * p:(i + 1) * p * p].reshape(n, 1, p, p)
-              for i in range(len(levels))]
-        lib = graph_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
-            gl, lv[:, None], gr, 0, 0, True, [True, False])
-            for gl, lv, gr in zip(gs, levels, grids)], reps=5)
-        dmap_elems = sum(lv.numel() for lv in levels)
-        bwd = lambda: cl.corr_window_bwd(g, levels, coords, R)  # noqa: E731
-        row("corr_lookup_bwd", dtype, shape, err, graph_ms(bwd, reps=5),
-            cuda_ms(lambda: cl.corr_window_bwd_plain(g, levels, coords, R),
-                    reps=5), lib,
-            g.numel() * isz + coords.numel() * 4 + dmap_elems * isz,
-            4 * 3 * cells, "RAFT", "graph", cuda_ms(bwd, reps=5))
-        del levels, g, grids, gs, out
-
+        lookup_rows(row, gen, dtype, tol_l)
+        lookup_closure(gen, dtype, tol_l)
         for tag, (B, c_in, h, w, c_out, k, s) in (
                 ("stem k7 s2 3->64", (4, 3, 376, 1248, 64, 7, 2)),
                 ("layer1 k3 s1 64->64", (4, 64, 188, 624, 64, 3, 1))):
             conv_rows(row, gen, dtype, tol_c, tag, "RAFT",
                       (B, c_in, h, w, c_out, k, s), None)
+
+
+def lookup_rows(row, gen, dtype, tol):
+    """The lookup's forward and its accumulating backward at RAFT's shape.
+    The backward adds into buffers the caller owns: 4 launches with
+    different coords into one zeroed set are held against the plain
+    accumulating backward (each launch's gradient rounded to the maps'
+    dtype and added), then one launch is timed. Its bound counts the
+    cotangent read and the in-map patch cells read and written."""
+    from pcfa_tpu_torch.ops import corr_lookup as cl
+
+    isz = torch.empty((), dtype=dtype).element_size()
+    levels, coords = kitti_lookup_inputs(dtype, gen)
+    n = coords.shape[0]
+    shape = f"N={n} L=4 r=4 (47x156..5x19)"
+    out = cl.corr_window_fwd(levels, coords, R)
+    torch.cuda.synchronize()
+    err = check_close("corr lookup fwd", out,
+                      cl.corr_window_plain(levels, coords, R), tol)
+    # grid_sample needs its grid in the map's dtype: a bf16 grid rounds
+    # pixel positions, so in bf16 it is a timing yardstick only
+    grids = [gr.to(dtype) for gr in grid_sample_lookup(levels, coords)]
+    lib = graph_ms(lambda: [F.grid_sample(
+        lv[:, None], g, mode="bilinear", padding_mode="zeros",
+        align_corners=True) for lv, g in zip(levels, grids)])
+    cells = lookup_patch_cells(levels, coords)
+    fwd = lambda: cl.corr_window_fwd(levels, coords, R)  # noqa: E731
+    row("corr_lookup_fwd", dtype, shape, err, graph_ms(fwd),
+        cuda_ms(lambda: cl.corr_window_plain(levels, coords, R)), lib,
+        cells * isz + coords.numel() * 4 + out.numel() * isz,
+        3 * 3 * out.numel(), "RAFT", "graph", cuda_ms(fwd))
+
+    g = torch.randn(out.shape, generator=gen).to("cuda", dtype)
+    got = [torch.zeros_like(t) for t in levels]
+    ref = [torch.zeros_like(t) for t in levels]
+    for i in range(4):
+        c = coords + 2.0 * i
+        cl.corr_window_bwd(g, got, c, R)
+        cl.corr_window_bwd_acc_plain(g, ref, c, R)
+    torch.cuda.synchronize()
+    err = max(check_close("corr lookup bwd (4 launches)", a, b, tol)
+              for a, b in zip(got, ref))
+    p = 2 * R + 1
+    gs = [g[:, i * p * p:(i + 1) * p * p].reshape(n, 1, p, p)
+          for i in range(len(levels))]
+    lib = graph_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
+        gl, lv[:, None], gr, 0, 0, True, [True, False])
+        for gl, lv, gr in zip(gs, levels, grids)], reps=5)
+    bwd = lambda: cl.corr_window_bwd(g, got, coords, R)  # noqa: E731
+    row("corr_lookup_bwd", dtype, shape, err, graph_ms(bwd),
+        cuda_ms(lambda: cl.corr_window_bwd_acc_plain(g, ref, coords, R),
+                reps=5), lib,
+        g.numel() * isz + coords.numel() * 4 + 2 * cells * isz,
+        4 * 3 * cells, "RAFT", "graph", cuda_ms(bwd))
+
+
+def closure_inputs(gen, dtype, iters=12):
+    """RAFT's feature maps for B pairs at 376×1248 (47×156×256, requiring
+    grad), `iters` coords (the pixel grid plus a random flow of a few
+    pixels) and cotangents of the lookup's output."""
+    f1, f2 = (torch.randn((PAIRS, 47, 156, 256), generator=gen)
+              .to("cuda", dtype).requires_grad_() for _ in range(2))
+    y, x = torch.meshgrid(torch.arange(47), torch.arange(156), indexing="ij")
+    grid = torch.stack([x, y], -1).float()
+    cs = [(grid + 3.0 * torch.randn((PAIRS, 47, 156, 2), generator=gen))
+          .to("cuda") for _ in range(iters)]
+    gs = [torch.randn((PAIRS, 47, 156, 4 * (2 * R + 1) ** 2),
+                      generator=gen).to("cuda", dtype) for _ in range(iters)]
+    return f1, f2, cs, gs
+
+
+def closure_grads(f1, f2, cs, gs, lookup):
+    """One closure's lookups as RAFT runs them: the pooled pyramid of f1
+    and f2, `lookup` at each coords, and the backward of every output
+    (with its cotangent) to f1 and f2."""
+    from pcfa_tpu_torch.ops.correlation import corr_pyramid_pooled
+
+    pyr = corr_pyramid_pooled(f1, f2, 4)
+    outs = [lookup(pyr, c, R) for c in cs]
+    return torch.autograd.grad(outs, (f1, f2), gs)
+
+
+def closure_ms(gen, dtype) -> tuple[float, float]:
+    """Time of one `closure_grads` through `corr_lookup_window`: the
+    pyramid products, 12 lookups and their backward. Returns (device
+    time by replaying a CUDA graph of 3 closures, time between CUDA
+    events over 5 closures issued from Python, which the host's pace
+    sets when it is the slower side). It calls only `corr_pyramid_pooled`
+    and `corr_lookup_window`, so it times any tree of the port alike."""
+    from pcfa_tpu_torch.ops.correlation import corr_lookup_window
+
+    inputs = closure_inputs(gen, dtype)
+    closure = lambda: closure_grads(*inputs, corr_lookup_window)  # noqa
+    return graph_ms(closure, reps=3), cuda_ms(closure, reps=5)
+
+
+def lookup_closure(gen, dtype, tol):
+    """The `corr_lookup_closure` row: f1's and f2's gradients through the
+    kernels against the same closure through the plain lookup (autograd
+    sums its 12 dense gradients), then its device time."""
+    from pcfa_tpu_torch.ops import corr_lookup as cl
+    from pcfa_tpu_torch.ops.correlation import corr_lookup_window
+
+    inputs = closure_inputs(gen, dtype)
+    got = closure_grads(*inputs, corr_lookup_window)
+    ref = closure_grads(*inputs, lambda p, c, r: cl.corr_window_plain(
+        list(p), c.reshape(-1, 2), r).reshape(*c.shape[:3], -1))
+    torch.cuda.synchronize()
+    err = max(check_close(f"corr lookup closure {name}", a, b, tol)
+              for name, a, b in zip(("d f1", "d f2"), got, ref))
+    del got, ref, inputs
+    dev, events = closure_ms(gen, dtype)
+    log(f"  {'corr_lookup_closure':16s} {str(dtype)[6:]:8s} "
+        f"{'B=2 47x156x256, 12 lookups':34s} err {err:.3g}  closure "
+        f"(pyramid products, 12 lookups, backward) {dev:.4f} ms  timed: "
+        f"graph (CUDA events from Python {events:.4f} ms)  [{card_line()}]")
+
+
+def compare_lookup():
+    """The lookup's rows in a form any tree of the port runs, for a
+    parent-vs-change comparison in one call (copy this script into the
+    other tree): graph-timed forward and one backward launch at RAFT's
+    shape, and the closure's device time, float32 and bf16. Times only;
+    `lookup_rows` and `lookup_closure` check the values."""
+    from pcfa_tpu_torch.ops import corr_lookup as cl
+
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        levels, coords = kitti_lookup_inputs(dtype, gen)
+        g = torch.randn((coords.shape[0], 4 * (2 * R + 1) ** 2),
+                        generator=gen).to("cuda", dtype)
+        bufs = [torch.zeros_like(t) for t in levels]
+        fwd = graph_ms(lambda: cl.corr_window_fwd(levels, coords, R))
+        bwd = graph_ms(lambda: cl.corr_window_bwd(g, bufs, coords, R),
+                       reps=5)
+        del levels, g, bufs
+        dev, events = closure_ms(gen, dtype)
+        log(f"# compare lookup {str(dtype)[6:]}: fwd {fwd:.4f} ms, bwd "
+            f"launch {bwd:.4f} ms, closure {dev:.4f} ms (graph-timed); "
+            f"closure {events:.4f} ms (CUDA events from Python) "
+            f"[{card_line()}]")
+        torch.cuda.empty_cache()
 
 
 def conv_rows(row, gen, dtype, tol, tag, path, conv, act, graph=False):

@@ -18,7 +18,11 @@ import math
 import torch
 
 from pcfa_tpu_torch.config import corr_hbm_budget_bytes
-from pcfa_tpu_torch.ops.corr_lookup import corr_window, corr_window_plain
+from pcfa_tpu_torch.ops.corr_lookup import (
+    corr_window,
+    corr_window_plain,
+    pyramid_with_grad,
+)
 from pcfa_tpu_torch.ops.warp import avg_pool2d
 
 
@@ -50,7 +54,9 @@ def corr_pyramid_pooled(fmap1: torch.Tensor, fmap2: torch.Tensor,
                         num_levels: int = 4) -> list[torch.Tensor]:
     """Per-level correlation against avg-pooled f2 features:
     level l = f1 · avgpool²ˡ(f2)ᵀ / √C, each (B·H1·W1, H2ₗ, W2ₗ).
-    The per-level product stays a `torch.matmul`."""
+    The per-level product stays a `torch.matmul`. Under autograd the levels
+    come through `pyramid_with_grad`: every `corr_lookup_window` on them
+    adds its gradient into one buffer per level for the backward pass."""
     B, H1, W1, C = fmap1.shape
     f1 = fmap1.reshape(B, H1 * W1, C)
     inv_sqrt_c = 1.0 / math.sqrt(C)
@@ -62,7 +68,7 @@ def corr_pyramid_pooled(fmap1: torch.Tensor, fmap2: torch.Tensor,
         _, H2, W2, _ = f2_l.shape
         cmap = torch.matmul(f1, f2_l.reshape(B, H2 * W2, C).transpose(1, 2))
         pyramid.append((cmap * inv_sqrt_c).reshape(B * H1 * W1, H2, W2))
-    return pyramid
+    return pyramid_with_grad(pyramid)
 
 
 def corr_lookup(pyramid: list[torch.Tensor], coords: torch.Tensor,
@@ -75,8 +81,9 @@ def corr_lookup(pyramid: list[torch.Tensor], coords: torch.Tensor,
 
 def corr_lookup_window(pyramid: list[torch.Tensor], coords: torch.Tensor,
                        radius: int = 4) -> torch.Tensor:
-    """The lookup RAFT runs: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. coords are detached (zero gradient)."""
+    """The lookup RAFT runs: the CUDA kernels for CUDA tensors, the plain
+    versions for CPU tensors, both through `corr_lookup._CorrWindow`.
+    coords are detached (zero gradient)."""
     B, H1, W1, _ = coords.shape
     out = corr_window(pyramid, coords.reshape(B * H1 * W1, 2), radius)
     return out.reshape(B, H1, W1, -1)

@@ -59,50 +59,139 @@ def _close(got, ref, tol):
                                 f"{float(ref[at])}")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
-def test_corr_lookup_kernel_matches_plain(rng, cuda, dtype, tol):
-    """Forward and backward on the KITTI pyramid's level sizes for 256
-    queries, with in-map, border, out-of-map and non-finite coordinates."""
-    shapes = [(47, 156), (23, 78), (11, 39), (5, 19)]
-    n = 256
-    levels = [_t(rng.standard_normal((n, h, w))).to(cuda, dtype)
+def _lookup_case(rng, dev, dtype, pairs, shapes):
+    """Levels for `pairs`·4·8 queries and coords that cover in-map,
+    border, out-of-map, far-off and non-finite points. Returns (levels,
+    coords, keep): `keep` marks the queries the plain version (whose
+    `grid_sample` gives NaN for |x| ~ 1e30 on CUDA) can be compared on."""
+    n = pairs * 4 * 8
+    levels = [_t(rng.standard_normal((n, h, w))).to(dev, dtype)
               for h, w in shapes]
-    c = _t(rng.uniform(-8, 164, (n, 2))).to(cuda)
+    c = _t(rng.uniform(-8, shapes[0][1] + 8, (n, 2))).to(dev)
     c[0] = torch.tensor([0.0, 0.0])
-    c[1] = torch.tensor([155.0, 46.0])
+    c[1] = torch.tensor([shapes[0][1] - 1.0, shapes[0][0] - 1.0])
     c[2] = torch.tensor([-40.0, 100.0])
     # coords beyond any map, and non-finite ones, must not index out of
-    # bounds; the kernel returns zeros there (grid_sample on CUDA gives NaN
-    # for |x| ~ 1e30, so those rows are not compared with it)
+    # bounds; the kernel returns zeros for the far ones
     c[3] = torch.tensor([1e30, -1e30])
     c[4] = torch.tensor([-3e9, 7.0])
     c[5] = float("nan")
     c[6] = float("inf")
     keep = torch.isfinite(c).all(1) & (c.abs() < 1e6).all(1)
+    return levels, c, keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("radius", [4, 7])
+@pytest.mark.parametrize("pairs", [1, 2])
+def test_corr_lookup_kernel_matches_plain(rng, cuda, dtype, tol, radius,
+                                          pairs):
+    """Forward and the accumulating backward (into zeroed buffers) on
+    levels with odd widths, B = 1 and 2, RAFT's radius and the largest,
+    with in-map, border, out-of-map and non-finite coordinates."""
+    shapes = [(24, 37), (12, 19), (6, 9), (3, 5)]
+    levels, c, keep = _lookup_case(rng, cuda, dtype, pairs, shapes)
+    n, p = c.shape[0], 2 * radius + 1
     before = cl.corr_window_fwd.launches
-    out = cl.corr_window_fwd(levels, c, R)
+    out = cl.corr_window_fwd(levels, c, radius)
     torch.cuda.synchronize()
     assert cl.corr_window_fwd.launches == before + 1
-    assert out.shape == (n, 4 * P * P) and out.dtype == dtype
-    _close(out[keep], cl.corr_window_plain(levels, c, R)[keep], tol)
+    assert out.shape == (n, 4 * p * p) and out.dtype == dtype
+    _close(out[keep], cl.corr_window_plain(levels, c, radius)[keep], tol)
     assert torch.count_nonzero(out[3:5]) == 0
 
     g = _t(rng.standard_normal(tuple(out.shape))).to(cuda, dtype)
     g[~keep] = 0
-    got = cl.corr_window_bwd(g, levels, c, R)
-    ref = cl.corr_window_bwd_plain(g, levels, c, R)
+    bufs = [torch.zeros_like(t) for t in levels]
+    before = cl.corr_window_bwd.launches
+    got = cl.corr_window_bwd(g, bufs, c, radius)
     torch.cuda.synchronize()
+    assert got is bufs and cl.corr_window_bwd.launches == before + 1
+    ref = cl.corr_window_bwd_plain(g, levels, c, radius)
     for a, b in zip(got, ref):
         _close(a[keep], b[keep], tol)
         assert torch.count_nonzero(a[~keep]) == 0
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_corr_lookup_kernel_accumulates_twelve_launches(rng, cuda, dtype,
+                                                        tol):
+    """12 backward launches with different coords into one set of buffers
+    against 12 plain backwards summed in the maps' dtype (as autograd
+    summed them), on the KITTI pyramid's level sizes."""
+    n = 2 * 6 * 16
+    shapes = [(47, 156), (23, 78), (11, 39), (5, 19)]
+    got = [torch.zeros((n, h, w), device=cuda, dtype=dtype)
+           for h, w in shapes]
+    ref = [torch.zeros_like(t) for t in got]
+    c0 = _t(rng.uniform(-8, 164, (n, 2)))
+    for _ in range(12):
+        c = (c0 + _t(rng.standard_normal((n, 2)) * 3.0)).to(cuda)
+        g = _t(rng.standard_normal((n, 4 * P * P))).to(cuda, dtype)
+        cl.corr_window_bwd(g, got, c, R)
+        cl.corr_window_bwd_acc_plain(g, ref, c, R)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close(a, b, tol)
+
+
+def _tent_window(levels, coords, radius):
+    """Float64 window lookup by tent weights (as `corr_lookup_mm_rf`):
+    out[a·P+b] = Σ_jk max(0, 1−|y+b−r−j|)·max(0, 1−|x+a−r−k|)·map[j, k].
+    Unlike `grid_sample`, defined on a 1×1 map."""
+    p = 2 * radius + 1
+    off = torch.arange(p, dtype=torch.float64, device=coords.device) - radius
+    out = []
+    for i, lv in enumerate(levels):
+        h, w = lv.shape[1:]
+        c = coords.double() / 2 ** i
+        sx = c[:, 0:1, None] + off[None, :, None]
+        sy = c[:, 1:2, None] + off[None, :, None]
+        wx = (1 - (sx - torch.arange(w, device=c.device)).abs()).clamp(min=0)
+        wy = (1 - (sy - torch.arange(h, device=c.device)).abs()).clamp(min=0)
+        out.append(torch.einsum("nak,nbj,njk->nab", wx, wy, lv.double())
+                   .reshape(-1, p * p))
+    return torch.cat(out, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_corr_lookup_kernel_one_by_one_level(rng, cuda, dtype, tol):
+    """A pyramid down to 1×1 (inputs below 128 px): forward and backward
+    against the float64 tent-weight lookup and its autograd gradient (the
+    plain version's `grid_sample` is undefined on a 1×1 map)."""
+    shapes = [(8, 11), (4, 5), (2, 2), (1, 1)]
+    n = 2 * 8 * 11
+    levels = [_t(rng.standard_normal((n, h, w))).to(cuda, dtype)
+              for h, w in shapes]
+    c = _t(rng.uniform(-3, 14, (n, 2))).to(cuda)
+    c[:8] = c.new_tensor(rng.uniform(-1.5, 1.5, (8, 2)))  # near the 1×1 cell
+    out = cl.corr_window_fwd(levels, c, R)
+    ref = [t.double().requires_grad_() for t in levels]
+    want = _tent_window(ref, c, R)
+    _close(out, want, tol)
+    g = _t(rng.standard_normal(tuple(out.shape))).to(cuda, dtype)
+    got = cl.corr_window_bwd(g, [torch.zeros_like(t) for t in levels], c, R)
+    torch.cuda.synchronize()
+    want.backward(g.double())
+    for a, b in zip(got, ref):
+        _close(a, b.grad, tol)
+    assert float(got[3].abs().max()) > 0
+
+
+@pytest.mark.cuda
 def test_corr_lookup_autograd_on_card(rng, cuda):
-    """The dispatch runs the kernel on CUDA tensors, in both directions."""
-    from pcfa_tpu_torch.ops.correlation import corr_lookup_window
+    """The dispatch runs the kernels on CUDA tensors, in both directions:
+    on a plain list of levels (each lookup fills its own buffers) and on
+    `corr_pyramid_pooled`'s pyramid (three lookups add into one buffer
+    per level), against plain autograd."""
+    from pcfa_tpu_torch.ops.correlation import (corr_lookup_window,
+                                                corr_pyramid_pooled)
 
     levels = [_t(rng.standard_normal((24, h, w))).to(cuda).requires_grad_()
               for h, w in [(12, 16), (6, 8), (3, 4), (2, 2)]]
@@ -117,6 +206,27 @@ def test_corr_lookup_autograd_on_card(rng, cuda):
         .backward()
     for a, r in zip(levels, ref):
         _close(a.grad, r.grad, 1e-4)
+
+    f1, f2 = (_t(rng.standard_normal((2, h, w, 16))).to(cuda)
+              .requires_grad_() for h, w in [(3, 4), (16, 24)])
+    cs = [_t(rng.uniform(-2, 26, (2, 3, 4, 2))).to(cuda) for _ in range(3)]
+    grads = []
+    for lookup in (corr_lookup_window, None):
+        f, b = cl.corr_window_fwd.launches, cl.corr_window_bwd.launches
+        pyr = corr_pyramid_pooled(f1, f2, 4)
+        if lookup is None:  # plain autograd through the plain version
+            lookup = lambda p, c, r: cl.corr_window_plain(  # noqa: E731
+                p, c.reshape(-1, 2), r)
+            launched = (f, b)
+        else:
+            launched = (f + 3, b + 3)
+        sum(lookup(pyr, c, R).square().sum() for c in cs).backward()
+        assert (cl.corr_window_fwd.launches,
+                cl.corr_window_bwd.launches) == launched
+        grads.append([f1.grad, f2.grad])
+        f1.grad = f2.grad = None
+    for a, r in zip(*grads):
+        _close(a, r, 1e-4)
 
 
 @pytest.mark.cuda

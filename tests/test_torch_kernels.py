@@ -21,6 +21,19 @@ from pcfa_tpu_torch.ops import segsum as sg
 from pcfa_tpu_torch.ops import small_conv as sc
 from pcfa_tpu_torch.ops.correlation import corr_lookup, corr_lookup_window
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op torch thread while this module runs: the suite runs a
+    pytest worker per core, and torch's default of a thread per core makes
+    the workers contend (a planner case of test_torch_kernels.py took 96 s
+    beside five other workers, 8 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R = 4
 P = 2 * R + 1
 
@@ -133,32 +146,126 @@ def test_lookup_bwd_plain_is_autograd(rng):
         np.testing.assert_allclose(got.numpy(), lv.grad.numpy(), atol=1e-6)
 
 
-def test_lookup_autograd_function_wiring(rng, monkeypatch):
-    """`_CorrWindow` with its two kernels swapped for their plain versions
-    (this checks the wrapper's autograd plumbing, not the kernels): maps get
-    the plain gradient, coords none, and each kernel counts one launch."""
+def test_lookup_autograd_function_wiring(rng):
+    """`_CorrWindow` on CPU tensors (the plain versions inside the same
+    Function the kernels use) on a plain list of levels: each lookup
+    returns its own gradient, the maps get the plain gradient, coords
+    none, and no kernel launch is counted."""
     pyr, coords = _lookup_inputs(rng)
     levels = _port_pyr(pyr, requires_grad=True)
     c = _t(coords).reshape(-1, 2)
-
-    def fwd(lv, co, r):
-        cl.corr_window_fwd.launches += 1
-        return cl.corr_window_plain(lv, co, r)
-
-    def bwd(g, lv, co, r):
-        cl.corr_window_bwd.launches += 1
-        return cl.corr_window_bwd_plain(g, lv, co, r)
-
-    monkeypatch.setattr(cl, "corr_window_fwd", fwd)
-    monkeypatch.setattr(cl, "corr_window_bwd", bwd)
-    fwd.launches = bwd.launches = 0
-    out = cl._CorrWindow.apply(c, R, *levels)
+    before = (cl.corr_window_fwd.launches, cl.corr_window_bwd.launches)
+    out = cl._CorrWindow.apply(c, R, None, *levels)
     g = _t(rng.standard_normal(tuple(out.shape)))
     (out * g).sum().backward()
     ref = cl.corr_window_bwd_plain(g, levels, c, R)
     for lv, r in zip(levels, ref):
         np.testing.assert_allclose(lv.grad.numpy(), r.numpy(), atol=1e-6)
-    assert (fwd.launches, bwd.launches) == (1, 1)
+    assert (cl.corr_window_fwd.launches, cl.corr_window_bwd.launches) == before
+
+
+def _accumulation_graph(rng, case):
+    """float64 leaves standing for a pyramid's levels, coords and
+    cotangents of three lookups that reach the loss, a fourth lookup's
+    coords, and weights of a second use of the levels."""
+    shapes = [(12, 20), (6, 10), (3, 5), (2, 2)]
+    n = 30
+    leaves = [torch.from_numpy(rng.standard_normal((n, h, w)))
+              .requires_grad_(True) for h, w in shapes]
+    cs = [torch.from_numpy(rng.uniform(-4, 24, (n, 2))) for _ in range(4)]
+    gs = [torch.from_numpy(rng.standard_normal((n, 4 * P * P)))
+          for _ in range(3)]
+    ws = [torch.from_numpy(rng.standard_normal((n, h, w)))
+          for h, w in shapes]
+
+    def loss(levels, lookup):
+        out = sum((lookup(levels, c) * g).sum() for c, g in zip(cs, gs))
+        if case == "one_unused":
+            lookup(levels, cs[3])  # never reaches the loss
+        if case == "second_use":
+            out = out + sum((lv * w).sum() for lv, w in zip(levels, ws))
+        return out
+
+    return leaves, loss
+
+
+def _acc_lookup(levels, c):
+    return cl.corr_window(levels, c, R)
+
+
+def _plain_lookup(levels, c):
+    return cl.corr_window_plain(levels, c, R)
+
+
+@pytest.mark.parametrize("case", ["all_reach_loss", "one_unused",
+                                  "second_use"])
+def test_lookup_accumulates_one_gradient_per_pyramid(rng, case):
+    """Lookups on `pyramid_with_grad`'s levels add into one buffer per
+    level, which `_PyramidGrad` hands on (with the gradient of any other
+    use of the levels): float64, against plain autograd's sum of the
+    per-lookup gradients, with 3 lookups that reach the loss, one more
+    that does not, or the levels also used by a second op. No kernel
+    launch is counted on the CPU."""
+    leaves, loss = _accumulation_graph(rng, case)
+    before = (cl.corr_window_fwd.launches, cl.corr_window_bwd.launches)
+    pyr = cl.pyramid_with_grad(leaves)
+    assert pyr.acc is not None and len(pyr) == len(leaves)
+    loss(pyr, _acc_lookup).backward()
+    assert pyr.acc.bufs is None  # handed on and dropped
+    got = [lv.grad.clone() for lv in leaves]
+    for lv in leaves:
+        lv.grad = None
+    loss(leaves, _plain_lookup).backward()
+    for a, lv in zip(got, leaves):
+        np.testing.assert_allclose(a.numpy(), lv.grad.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    assert (cl.corr_window_fwd.launches, cl.corr_window_bwd.launches) == before
+
+
+def test_lookup_accumulation_with_retain_graph(rng):
+    """Two backward passes through one graph (`retain_graph=True`): each
+    zero-fills its own buffers, so the second adds the same gradient
+    again."""
+    leaves, loss = _accumulation_graph(rng, "second_use")
+    out = loss(cl.pyramid_with_grad(leaves), _acc_lookup)
+    out.backward(retain_graph=True)
+    once = [lv.grad.clone() for lv in leaves]
+    out.backward()
+    for a, lv in zip(once, leaves):
+        np.testing.assert_allclose(lv.grad.numpy(), 2 * a.numpy(),
+                                   rtol=1e-12, atol=1e-12)
+    for lv in leaves:
+        lv.grad = None
+    loss(leaves, _plain_lookup).backward()
+    for a, lv in zip(once, leaves):
+        np.testing.assert_allclose(a.numpy(), lv.grad.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_lookup_bwd_acc_plain_matches_mm_rf_vjp(rng):
+    """The plain accumulating backward, two lookups added into one set of
+    float64 buffers, against the sum of two VJPs of JAX's default lookup
+    (`corr_lookup_mm_rf`) in float64."""
+    pyr, c1 = _lookup_inputs(rng)
+    c2 = c1 + rng.standard_normal(c1.shape) * 2.0
+    gs = [rng.standard_normal((1, 8, 8, 4 * P * P)) for _ in range(2)]
+    with jax.enable_x64(True):
+        jp = [jnp.asarray(lv, jnp.float64) for lv in pyr]
+        want = [np.zeros(lv.shape) for lv in pyr]
+        for c, g in zip((c1, c2), gs):
+            _, vjp = jax.vjp(lambda p: jcorr.corr_lookup_mm_rf(
+                p, jnp.asarray(c, jnp.float64), R), jp)
+            for w, d in zip(want, vjp(jnp.asarray(g))[0]):
+                w += np.asarray(d)
+    dmaps = [torch.zeros(lv.shape[:3], dtype=torch.float64) for lv in pyr]
+    for c, g in zip((c1, c2), gs):
+        got = cl.corr_window_bwd_acc_plain(
+            torch.from_numpy(g.reshape(64, -1)), dmaps,
+            torch.from_numpy(np.asarray(c, np.float64).reshape(-1, 2)), R)
+        assert got is dmaps
+    for d, w in zip(dmaps, want):
+        np.testing.assert_allclose(d.numpy(), w[..., 0], rtol=1e-12,
+                                   atol=1e-12)
 
 
 # ---------------------------------------------------------- small conv ---

@@ -31,6 +31,19 @@ from pcfa_tpu_torch.attack import pcfa
 from pcfa_tpu_torch.models import make_model, pwcnet
 from pcfa_tpu_torch.models.convert import pwcnet_params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op torch thread while this module runs: the suite runs a
+    pytest worker per core, and torch's default of a thread per core makes
+    the workers contend (a planner case of test_torch_kernels.py took 96 s
+    beside five other workers, 8 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H = W = 128
 
 
