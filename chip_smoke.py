@@ -14,9 +14,11 @@ script then exits non-zero):
    small conv at RAFT's and at all of PWCNet's, with PWCNet's leaky
    epilogue and its derivative fused into dx), in float32 and bf16 (the
    small conv's bf16 is its tensor-core kernel, float32 its CUDA-core
-   route; segsum: float32, the only dtype its path sends), with kernel,
-   plain-version and library-call times and the bound (plus the patch
-   correlation at FlowNetC's shape). The lookup's backward adds into
+   route), with kernel, plain-version and library-call times and the
+   bound (plus the patch correlation at FlowNetC's shape, and the warp's
+   backward at FlowNet2's full-resolution border warp of 3-channel
+   images). The warp's backward is one kernel for d img, d ix and d iy
+   (PWCNet's four warps and a collision case). The lookup's backward adds into
    buffers the caller owns: it is held against the plain accumulating
    backward over 4 launches, and a `corr_lookup_closure` row checks and
    times what one RAFT closure does with the lookup (the pyramid, 12
@@ -24,7 +26,7 @@ script then exits non-zero):
    library times were taken: `loop` (10 launches back to back) or `graph`
    (a CUDA-graph replay: device time, warm L2, the loop time beside it),
    which every kernel row of the lookup, PWCNet's convs, the patch
-   correlation and segsum uses;
+   correlation and the warp's backward uses;
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
    128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
    pairs, both float32, on the CPU (plain versions) and on the card
@@ -45,7 +47,10 @@ pace of a host-bound step.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. Without CUDA it exits non-zero and
 prints no result. `--profile` adds a `torch.profiler` table of one outer
-step of each main path (device busy share, top kernels by device time).
+step of each main path (device busy share, device launches, top kernels
+by device time) and the device time and launches of one closure.
+`compare_warp()` and `compare_lookup()` time the warp's and the lookup's
+rows in a form any tree of the port runs (parent-vs-change comparisons).
 """
 
 from __future__ import annotations
@@ -105,7 +110,7 @@ KERNELS = [
     ("local_corr_bwd", "local_corr", "local_corr_bwd",
      "pcfa_tpu_torch/csrc/local_corr.cu",
      "pcfa_tpu/ops/pallas/local_corr.py:199"),
-    ("segsum", "segsum", "segment_rows_cuda",
+    ("warp_bwd", "segsum", "warp_bwd_cuda",
      "pcfa_tpu_torch/csrc/segsum.cu",
      "pcfa_tpu/ops/pallas/segsum.py:170"),
 ]
@@ -113,7 +118,7 @@ KERNELS = [
 PATH_KERNELS = {
     "RAFT": ["corr_lookup_fwd", "corr_lookup_bwd", "small_conv_fwd",
              "small_conv_dx"],
-    "PWCNet": ["local_corr_fwd", "local_corr_bwd", "segsum",
+    "PWCNet": ["local_corr_fwd", "local_corr_bwd", "warp_bwd",
                "small_conv_fwd", "small_conv_dx"],
 }
 
@@ -311,7 +316,7 @@ def phase_kernels():
     kernels_raft(rows)
     kernels_pwc_conv(rows)
     kernels_local_corr(rows)
-    kernels_segsum(rows)
+    kernels_warp_bwd(rows)
     torch.cuda.empty_cache()
     return rows
 
@@ -642,50 +647,167 @@ def kernels_local_corr(rows):
             f"{sum(sums['bound_ms'].values()):.4f} ms [{card_line()}]")
 
 
-def kernels_segsum(rows):
-    """The warp's segment row-sum at PWCNet's four warps at 384×1280
-    (B = 1): N = H·W sample rows of K = 4C, nrows = (H+1)(W+1) window
-    bases, indices from the packed sampler at a random flow of a few
-    pixels; plus a collision-heavy case (level 2's rows into 64 cells).
-    The rows are float32, the only dtype the kernel takes (the warp's
-    backward builds them in float32). Tolerance 1e-4 of the largest plain
-    value (atomics add in a varying order)."""
+def warp_state(gen, shape, dtype, zeros, collide=False):
+    """The packed sampler's saved forward state and a float32 cotangent
+    (the warp's output is promoted to float32) on the card, as
+    `warp_bwd`'s first seven arguments: one sample per pixel at the pixel
+    grid plus a random flow of a few pixels (border mode: clamped to the
+    image, as `grid_sample` clamps), or with `collide` every sample in
+    one 8×8 patch (a few samples per window base)."""
+    from pcfa_tpu_torch.ops.warp import _corner_weights, _pack_windows
+
+    B, H, W, C = shape
+    img = torch.randn(shape, generator=gen).to("cuda", dtype)
+    if collide:
+        ix, iy = (10.0 + 8.0 * torch.rand((B, H, W), generator=gen)
+                  for _ in range(2))
+    else:
+        ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W),
+                                indexing="ij")
+        flow = 2.0 * torch.randn((B, H, W, 2), generator=gen)
+        ix, iy = xs + flow[..., 0], ys + flow[..., 1]
+        if not zeros:
+            ix, iy = ix.clamp(0, W - 1), iy.clamp(0, H - 1)
+    idx, w4, mask4, a, b = _corner_weights(shape, ix.to("cuda"),
+                                           iy.to("cuda"), zeros)
+    win = _pack_windows(img)[idx].reshape(-1, 4, C)
+    g = torch.randn((B, H, W, C), generator=gen).to("cuda")
+    return [g, win, idx, w4, mask4, a, b], (ix, iy), img
+
+
+def kernels_warp_bwd(rows):
+    """The packed sampler's backward (d img, d ix, d iy in one kernel) at
+    PWCNet's four warps at 384×1280 (B = 1, zeros mode), a collision case
+    (level 2's samples in one 8×8 patch) and FlowNet2's full-resolution
+    border warp of 3-channel images (B = 1, 384×1280), with bf16 (PWCNet's
+    main path) and float32 images. Checked against the plain version on
+    the same inputs, 1e-4 of the largest plain value (float32 sums in the
+    atomics' varying order), d img taken as the float32 accumulator;
+    kernel times are the whole contract (zero fill, kernel, the cast of a
+    bf16 image's gradient), graph-timed. Library: one
+    `grid_sampler_2d_backward` (NCHW, float32 input and grid, both
+    gradients). Bound: every input read once (g, the saved corners, idx,
+    weights, fractions, mask), d img in the image's dtype and d ix, d iy
+    written once; 16 float32 operations per sample and channel (four dot
+    products, four scaled adds). Prints the four PWCNet warps' sums per
+    closure."""
     from pcfa_tpu_torch.ops import segsum as sg
-    from pcfa_tpu_torch.ops.warp import _corner_weights
 
     gen = torch.Generator().manual_seed(2)
     row = row_adder(rows)
-    log("# segsum vs plain (PWCNet warps at 384x1280, B = 1)")
-    dtype, tol, isz = torch.float32, 1e-4, 4
-    cases = [("L2 collide", 96, 320, 32, True)] + [
-        (n, h, w, c, False) for n, h, w, c in PWC_LEVELS[1:]]
-    for tag, h, w, c, collide in cases:
-        n, k, nrows = PWC_PAIRS * h * w, 4 * c, PWC_PAIRS * (h + 1) * (
-            w + 1)
-        if collide:
-            idx = torch.randint(0, 64, (n,), generator=gen)
-        else:
-            ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w),
-                                    indexing="ij")
-            flow = 2.0 * torch.randn((PWC_PAIRS, h, w, 2), generator=gen)
-            idx = _corner_weights((PWC_PAIRS, h, w, c), xs + flow[..., 0],
-                                  ys + flow[..., 1], True)[0]
-        idx = idx.to("cuda")
-        upd = torch.randn((n, k), generator=gen).to("cuda", dtype)
-        out = sg.segment_rows_cuda(idx, upd, nrows)
+    log("# warp backward vs plain (PWCNet's warps and FlowNet2's image "
+        "warp at 384x1280, B = 1)")
+    cases = ([(n, (PWC_PAIRS, h, w, c), True, False, "PWCNet")
+              for n, h, w, c in PWC_LEVELS[1:]]
+             + [("L2 collide", (PWC_PAIRS, 96, 320, 32), True, True, None),
+                ("FlowNet2 border", (1, 384, 1280, 3), False, False,
+                 "FlowNet2")])
+    for dtype in (torch.float32, torch.bfloat16):
+        isz = torch.empty((), dtype=dtype).element_size()
+        for tag, shape, zeros, collide, path in cases:
+            B, H, W, C = shape
+            state, (ix, iy), img = warp_state(gen, shape, dtype, zeros,
+                                              collide)
+            got = sg.warp_bwd_cuda(*state, shape, torch.float32)
+            ref = sg.warp_bwd_plain(*state, shape, torch.float32)
+            torch.cuda.synchronize()
+            err = max(check_close(f"warp bwd {tag} {what}", x, y, 1e-4)
+                      for what, x, y in zip(("d img", "d ix", "d iy"), got,
+                                            ref))
+            g, a = state[0], state[5]
+            nbytes = (sum(t.numel() * t.element_size() for t in state
+                          if t is not None)
+                      + B * H * W * C * isz + 2 * a.numel() * 4)
+            grid = torch.stack([(2 * ix + 1) / W - 1, (2 * iy + 1) / H - 1],
+                               -1).to("cuda")
+            gl, il = (t.permute(0, 3, 1, 2).float().contiguous()
+                      for t in (g, img))
+            kernel = lambda: sg.warp_bwd_cuda(*state, shape, dtype)  # noqa
+            row("warp_bwd", dtype, f"{tag} {B}x{H}x{W}x{C} N={a.numel()}",
+                err, graph_ms(kernel),
+                cuda_ms(lambda: sg.warp_bwd_plain(*state, shape, dtype)),
+                graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    gl, il, grid, 0, 0 if zeros else 1, False,
+                    [True, True])),
+                nbytes, 16 * a.numel() * C, path, "graph", cuda_ms(kernel))
+            del state, img, got, ref, grid, gl, il
+        pwc = [r for r in rows[-len(cases):] if r["path"] == "PWCNet"]
+        sums = {k: sum(r[k] for r in pwc)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"# warp backward, PWCNet's four warps per closure, "
+            f"{str(dtype)[6:]} image (graph-timed, warm L2): kernel "
+            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, library "
+            f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+            f"[{card_line()}]")
+
+
+def compare_warp():
+    """The warp backward in a form any tree of the port runs, for a
+    parent-vs-change comparison in one call (copy this script into the
+    other tree): at each of PWCNet's four warps at 384×1280 (B = 1, bf16
+    features, float32 grid as `pwc_warp` builds it, float32 cotangent),
+    `grid_sample`'s backward through autograd to the image and the grid:
+    device time by CUDA-graph replay (forward + backward less the
+    forward), time between CUDA events over 10 backwards issued from
+    Python (the host's pace), and the device launches of one backward
+    (`torch.profiler`), both of the whole `grid_sample` backward and of
+    the sampler's own (`_PackedBilinear` on leaf coordinates); then their
+    sums per closure. Times only; `kernels_warp_bwd` checks the values."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcfa_tpu_torch.ops.warp import _PackedBilinear, grid_sample
+
+    def launches(fn) -> int:
+        fn()
         torch.cuda.synchronize()
-        err = check_close(f"segsum {tag}", out,
-                          sg.segment_rows_plain(idx, upd, nrows), tol)
-        kernel = lambda: sg.segment_rows_cuda(idx, upd, nrows)  # noqa: E731
-        row("segsum", dtype, f"{tag} N={n} K={k} nrows={nrows}", err,
-            graph_ms(kernel),
-            cuda_ms(lambda: sg.segment_rows_plain(idx, upd, nrows)),
-            graph_ms(lambda: torch.zeros((nrows, k), dtype=dtype,
-                                         device="cuda").index_add_(
-                                             0, idx, upd)),
-            n * k * isz + n * 8 + nrows * k * isz, n * k,
-            None if collide else "PWCNet", "graph", cuda_ms(kernel))
-        del idx, upd, out
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    gen = torch.Generator().manual_seed(4)
+    total = dict.fromkeys(("graph", "loop", "launches", "own"), 0.0)
+    card = card_line()
+    for tag, h, w, c in PWC_LEVELS[1:]:
+        img = (torch.randn((PWC_PAIRS, h, w, c), generator=gen)
+               .to("cuda", torch.bfloat16).requires_grad_())
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w),
+                                indexing="ij")
+        flow = 2.0 * torch.randn((PWC_PAIRS, h, w, 2), generator=gen)
+        grid = torch.stack([2.0 * (xs + flow[..., 0]) / (w - 1) - 1.0,
+                            2.0 * (ys + flow[..., 1]) / (h - 1) - 1.0], -1)
+        grid = grid.to("cuda").requires_grad_()
+        g = torch.randn((PWC_PAIRS, h, w, c), generator=gen).to("cuda")
+        fwd = graph_ms(lambda: grid_sample(img, grid))
+        both = graph_ms(lambda: torch.autograd.grad(
+            grid_sample(img, grid), (img, grid), g))
+        out = grid_sample(img, grid)
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, (img, grid), g, retain_graph=True)
+        loop = cuda_ms(bwd)
+        n_all = launches(bwd)
+        ix, iy = (t.detach().requires_grad_() for t in (
+            (grid[..., 0].detach() + 1.0) * 0.5 * w - 0.5,
+            (grid[..., 1].detach() + 1.0) * 0.5 * h - 0.5))
+        own = _PackedBilinear.apply(img, ix, iy, True)
+        n_own = launches(lambda: torch.autograd.grad(
+            own, (img, ix, iy), g, retain_graph=True))
+        for k, v in (("graph", both - fwd), ("loop", loop),
+                     ("launches", n_all), ("own", n_own)):
+            total[k] += v
+        log(f"# compare warp {tag} {PWC_PAIRS}x{h}x{w}x{c}: backward "
+            f"{both - fwd:.4f} ms graph-timed (fwd+bwd {both:.4f}, fwd "
+            f"{fwd:.4f}), {loop:.4f} ms between CUDA events; device "
+            f"launches per backward {n_all} (the sampler's own {n_own}) "
+            f"[{card}]")
+        del img, grid, g, out, own
+    log(f"# compare warp, PWCNet's four warps per closure: backward "
+        f"{total['graph']:.4f} ms graph-timed, {total['loop']:.4f} ms "
+        f"between CUDA events; device launches {int(total['launches'])} "
+        f"(the sampler's own {int(total['own'])}) [{card}]")
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ 3 ---
@@ -756,9 +878,10 @@ def phase_parity():
 
 # ------------------------------------------------------------------ 4 ---
 
-def profile_step(step) -> None:
-    """One call of `step` under `torch.profiler`: device busy share and the
-    kernels that take the most device time."""
+def profile_step(step, what: str = "one outer step", top: int = 30) -> None:
+    """One call of `step` under `torch.profiler`: device busy share, device
+    launches (kernels, fills and copies) and the `top` kernels by device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -773,10 +896,11 @@ def profile_step(step) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"# profile of one outer step: wall {wall_us / 1e3:.1f} ms (profiler "
+    log(f"# profile of {what}: wall {wall_us / 1e3:.1f} ms (profiler "
         f"on), device busy {busy_us / 1e3:.1f} ms "
-        f"({100 * busy_us / wall_us:.1f}%); top kernels by device time:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:30]:
+        f"({100 * busy_us / wall_us:.1f}%), device launches "
+        f"{sum(e.count for e in events)}; top kernels by device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:110]}")
 
@@ -879,6 +1003,7 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
     if profile:
         profile_step(lambda: pcfa.pcfa_outer_step(
             flow_fn, image1, image2, target, flow_init, state, cfg))
+        profile_step(lambda: value_and_grad(x), "one closure", top=10)
     it_s = (t_steps[-1] - fwd) / cfg.max_iter
     published = (20 * 10 * it_s + 21 * fwd) / pairs
     card = card_line()
@@ -928,8 +1053,8 @@ def main() -> int:
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "timed")
     for name, _, _, src, replaces in KERNELS:
-        # per path, the row at its main-path dtype (bf16; segsum float32)
-        # with the largest bound; the top-level numbers are those of the
+        # per path, the row at its main-path dtype (bf16) with the
+        # largest bound; the top-level numbers are those of the
         # path that launched the kernel most. Every row is printed above.
         paths = {}
         for net, n in by_path.items():

@@ -3,15 +3,15 @@ public layout, like `pcfa_tpu/ops/warp.py`): images (B, H, W, C), point
 grids (B, Hg, Wg, 2) with (x, y) in the last axis.
 
 `grid_sample` is the JAX package's packed-corner sampler: one row gather
-of each sample's 2×2 window, and a backward whose image gradient is one
-segment row-sum (`ops/segsum.py`, a CUDA kernel on the card)."""
+of each sample's 2×2 window, and a backward (d img, d ix, d iy) that is one
+call of `ops/segsum.warp_bwd` (a CUDA kernel on the card)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from pcfa_tpu_torch.ops.segsum import segment_rows
+from pcfa_tpu_torch.ops.segsum import warp_bwd
 
 
 def coords_grid(batch: int, ht: int, wd: int,
@@ -107,10 +107,11 @@ class _PackedBilinear(torch.autograd.Function):
     `ix`, `iy` (B, Hg, Wg): the forward and custom VJP of
     `pcfa_tpu/ops/warp.py:_bilinear_abs_packed`. The output takes the
     promoted dtype of image and coordinates, as in the JAX package. The
-    backward computes in float32 (float64 for float64 inputs): d img is
-    one segment row-sum of the 4C-wide corner rows onto the window bases,
-    four shifted adds and the border folds; d ix, d iy come from the
-    saved corner values."""
+    backward is `ops/segsum.warp_bwd` on the saved state, in float32
+    (float64 for float64 inputs): d img adds each corner's w·g onto its
+    clamped cell (on the CPU: a segment row-sum of the 4C-wide corner
+    rows, four shifted adds and the border folds); d ix, d iy come from
+    the saved corner values."""
 
     @staticmethod
     def forward(ctx, img, ix, iy, zeros):
@@ -126,38 +127,10 @@ class _PackedBilinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         win, idx, w4, mask4, a, b = ctx.saved_tensors
-        B, H, W, C = ctx.img_shape
-        N = w4.shape[0]
-        dt = torch.promote_types(g.dtype, torch.float32)
-        gf = g.reshape(N, C).to(dt)
-        dimg = dix = diy = None
-        if ctx.needs_input_grad[0]:
-            upd = (w4.to(dt)[:, :, None] * gf[:, None, :]).reshape(N, 4 * C)
-            buf = segment_rows(idx, upd, B * (H + 1) * (W + 1))
-            buf = buf.reshape(B, H + 1, W + 1, 4, C)
-            acc = buf.new_zeros((B, H + 2, W + 2, C))
-            acc[:, :-1, :-1] += buf[..., 0, :]
-            acc[:, :-1, 1:] += buf[..., 1, :]
-            acc[:, 1:, :-1] += buf[..., 2, :]
-            acc[:, 1:, 1:] += buf[..., 3, :]
-            rows = acc[:, 1:-1].clone()
-            rows[:, 0] += acc[:, 0]
-            rows[:, -1] += acc[:, -1]
-            dimg = rows[:, :, 1:-1].clone()
-            dimg[:, :, 0] += rows[:, :, 0]
-            dimg[:, :, -1] += rows[:, :, -1]
-            dimg = dimg.to(ctx.img_dtype)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dot = (win.to(dt) * gf[:, None, :]).sum(-1)  # (N, 4)
-            if mask4 is not None:
-                dot = torch.where(mask4, dot, torch.zeros((), dtype=dt,
-                                                          device=dot.device))
-            af = a.reshape(N).to(dt)
-            bf = b.reshape(N).to(dt)
-            dix = ((1.0 - bf) * (dot[:, 1] - dot[:, 0])
-                   + bf * (dot[:, 3] - dot[:, 2])).reshape(a.shape).to(a.dtype)
-            diy = ((1.0 - af) * (dot[:, 2] - dot[:, 0])
-                   + af * (dot[:, 3] - dot[:, 1])).reshape(b.shape).to(b.dtype)
+        dimg, dix, diy = warp_bwd(
+            g, win, idx, w4, mask4, a, b, ctx.img_shape, ctx.img_dtype,
+            ctx.needs_input_grad[0],
+            ctx.needs_input_grad[1] or ctx.needs_input_grad[2])
         return dimg, dix, diy, None
 
 

@@ -444,52 +444,135 @@ def test_local_corr_cotangent_through_pwcnet_epilogue(rng, cuda, dtype, tol,
         _close(got, ref, tol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["warp", "one_cell", "out_of_range"])
-def test_segsum_kernel_matches_float64(rng, cuda, case):
-    """Against a float64 truth: float32 atomics add in a varying order, so
-    the rows are held to atol 2e-5 / rtol 2e-4 (as the JAX package's
-    segsum tests). Indices outside [0, nrows) are skipped."""
+def _warp_state(rng, shape, zeros, dtype, coords=None):
+    """The packed sampler's saved forward state for an image of `shape` in
+    `dtype` and a float32 cotangent (what `pwc_warp`'s promoted output
+    sends back), as `warp_bwd`'s first seven arguments, on the CPU:
+    2·(H+2)·(W+1) samples at `coords` (B, Hg, Wg, 2) pixel positions
+    (default: uniform over the image and a pixel beyond each edge)."""
+    from pcfa_tpu_torch.ops import warp
+
+    B, H, W, C = shape
+    img = _t(rng.standard_normal(shape)).to(dtype)
+    if coords is None:
+        coords = rng.uniform(-1.5, 0.5, (B, H + 2, W + 1, 2)) \
+            + rng.uniform(0, 1, (B, H + 2, W + 1, 2)) * (W + 1, H + 1)
+    ix, iy = _t(coords[..., 0]), _t(coords[..., 1])
+    idx, w4, mask4, a, b = warp._corner_weights(shape, ix, iy, zeros)
+    win = warp._pack_windows(img)[idx].reshape(-1, 4, C)
+    g = _t(rng.standard_normal((*ix.shape, C)))
+    return [g, win, idx, w4, mask4, a, b]
+
+
+def _close_nan(got, ref, tol):
+    """`_close` where NaNs must sit at the same places."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert torch.equal(got.isnan(), ref.isnan())
+    _close(got.nan_to_num(nan=0.0), ref.nan_to_num(nan=0.0), tol)
+
+
+def _warp_bwd_check(state, shape, dtype, need=(True, True)):
+    """The kernel on the card against the plain version in float64 on the
+    CPU. d img: float32 sums in the atomics' varying order, up to 7,680
+    terms in one cell (1e-4 of the largest value); a bf16 image's gradient
+    is rounded once to bf16 (one bf16 ulp, ≤ 2⁻⁷ of a value: 1e-2). d ix,
+    d iy: float32 dots of at most 128 products (1e-5). Returns the
+    kernel's results."""
     from pcfa_tpu_torch.ops import segsum as sg
 
-    N, K, nrows = 7680, 256, 7889   # PWCNet's level-3 warp at 384×1280
-    idx = rng.integers(0, nrows, N)
-    if case == "one_cell":
-        idx[:4000] = 17
-    elif case == "out_of_range":
-        idx[::7] = nrows + 3
-        idx[1::7] = -1
-    upd = _t(rng.standard_normal((N, K)))
-    keep = (idx >= 0) & (idx < nrows)
-    want = np.zeros((nrows, K))
-    np.add.at(want, idx[keep], upd.double().numpy()[keep])
-    before = sg.segment_rows_cuda.launches
-    got = sg.segment_rows(torch.from_numpy(idx).to(cuda), upd.to(cuda), nrows)
+    ref = sg.warp_bwd_plain(*[t.double() if t is not None
+                              and t.is_floating_point() else t
+                              for t in state], shape, torch.float64, *need)
+    before = sg.warp_bwd_cuda.launches
+    got = sg.warp_bwd(*[None if t is None else t.to("cuda") for t in state],
+                      shape, dtype, *need)
     torch.cuda.synchronize()
-    assert sg.segment_rows_cuda.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (nrows, K)
-    np.testing.assert_allclose(got.double().cpu().numpy(), want, atol=2e-5,
-                               rtol=2e-4)
+    assert sg.warp_bwd_cuda.launches == before + 1
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if y is None:
+            assert x is None
+            continue
+        assert x.shape == y.shape and x.is_cuda
+        assert x.dtype == (dtype if i == 0 else torch.float32)
+        _close_nan(x, y, 1e-5 if i else 1e-2 if dtype == torch.bfloat16
+                   else 1e-4)
+    return got
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
-def test_segsum_kernel_takes_float32_rows_only(cuda, dtype):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 32, 64, 96, 128])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_warp_bwd_kernel_matches_plain(rng, cuda, mode, c, dtype):
+    """d img, d ix, d iy at B = 2 for C = 3 (FlowNet2's images) and
+    PWCNet's 32–128 channels, float32 and bf16 images."""
+    shape = (2, 24, 40, c)
+    state = _warp_state(rng, shape, mode == "zeros", dtype)
+    _warp_bwd_check(state, shape, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one_pixel_wide", "one_cell", "nan_far",
+                                  "img_only", "grid_only", "odd_c"])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_warp_bwd_kernel_edge_cases(rng, cuda, mode, case, dtype):
+    """A one-pixel-wide image; every sample on one cell (PWCNet's level 3
+    at 384×1280: 7,680 samples of 64 channels, a 7,680-way collision);
+    NaN and ±1e30 coordinates; only d img or only the grid's gradient
+    asked for; C = 17 (one channel per lane, groups of 4)."""
+    shape = {"one_pixel_wide": (2, 7, 1, 32), "one_cell": (1, 48, 160, 64),
+             "odd_c": (2, 9, 11, 17)}.get(case, (2, 12, 20, 32))
+    B, H, W, C = shape
+    coords = None
+    if case == "one_cell":
+        coords = np.broadcast_to((77.25, 20.5), (B, H, W, 2)).copy()
+    elif case == "nan_far":
+        coords = rng.uniform(-2, 22, (B, H, W, 2))
+        coords[0, 0, :5] = [(np.nan, 1.0), (2.0, np.nan), (1e30, 1.0),
+                            (-1e30, 2.0), (1.5, 1e30)]
+        coords[1, 3, :4] = [(-1e30, -1e30), (W - 1.0, H - 1.0), (0.0, 0.0),
+                            (np.nan, np.nan)]
+    need = {"img_only": (True, False), "grid_only": (False, True)}.get(
+        case, (True, True))
+    state = _warp_state(rng, shape, mode == "zeros", dtype, coords)
+    _warp_bwd_check(state, shape, dtype, need)
+
+
+@pytest.mark.cuda
+def test_warp_bwd_kernel_refuses_what_it_does_not_take(rng, cuda):
     from pcfa_tpu_torch.ops import segsum as sg
 
-    idx = torch.zeros(4, dtype=torch.int64, device=cuda)
+    shape = (1, 4, 5, 8)
+    state = [None if t is None else t.to(cuda)
+             for t in _warp_state(rng, shape, True, torch.float32)]
     with pytest.raises(TypeError):
-        sg.segment_rows(idx, torch.ones((4, 3), dtype=dtype, device=cuda), 2)
+        sg.warp_bwd(*state[:1], state[1].double(), *state[2:], shape,
+                    torch.float64)
+    with pytest.raises(TypeError):
+        sg.warp_bwd(state[0].double(), *state[1:], shape, torch.float32)
+    with pytest.raises(ValueError):
+        sg.warp_bwd(*state[:2], state[2].int(), *state[3:], shape,
+                    torch.float32)
+    with pytest.raises(ValueError):
+        sg.warp_bwd(*state[:2], state[2].cpu(), *state[3:], shape,
+                    torch.float32)
 
 
 @pytest.mark.cuda
-def test_grid_sample_autograd_on_card(rng, cuda):
-    """The packed sampler on the card: d img through the segsum kernel,
-    against the same sampler on the CPU (plain row-sum)."""
-    from pcfa_tpu_torch.ops import segsum as sg
-    from pcfa_tpu_torch.ops.warp import grid_sample
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_sample_autograd_on_card(rng, cuda, dtype):
+    """The packed sampler on the card against the same sampler on the
+    CPU (the plain backward): one launch of the backward kernel per
+    backward, and at most three device launches in the sampler's
+    backward (the gradient's zero fill, the kernel, the cast of a bf16
+    image's gradient)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    img = _t(rng.standard_normal((2, 24, 80, 32)))
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.ops.warp import _PackedBilinear, grid_sample
+
+    img = _t(rng.standard_normal((2, 24, 80, 32))).to(dtype)
     grid = _t(rng.uniform(-1.2, 1.2, (2, 24, 80, 2)))
     g = _t(rng.standard_normal((2, 24, 80, 32)))
     res = {}
@@ -498,9 +581,24 @@ def test_grid_sample_autograd_on_card(rng, cuda):
         b = grid.to(dev).detach().requires_grad_()
         (grid_sample(a, b) * g.to(dev)).sum().backward()
         res[str(dev)] = (a.grad.cpu(), b.grad.cpu())
-    before = sg.segment_rows_cuda.launches
+    before = sg.warp_bwd_cuda.launches
     a = img.to(cuda).requires_grad_()
     grid_sample(a, grid.to(cuda)).sum().backward()
-    assert sg.segment_rows_cuda.launches == before + 1
-    for x, y in zip(res["cpu"], res[str(cuda)]):
-        _close(y, x, 1e-4)
+    assert sg.warp_bwd_cuda.launches == before + 1
+    for i, (x, y) in enumerate(zip(res["cpu"], res[str(cuda)])):
+        _close(y, x, 1e-2 if i == 0 and dtype == torch.bfloat16 else 1e-4)
+
+    a = img.to(cuda).requires_grad_()
+    ix, iy = (_t(rng.uniform(-2, 81, (2, 24, 80))).to(cuda).requires_grad_()
+              for _ in range(2))
+    out = _PackedBilinear.apply(a, ix, iy, True)
+    gc = g.to(cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, (a, ix, iy), gc)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert 1 <= launches <= (3 if dtype == torch.bfloat16 else 2), \
+        launches

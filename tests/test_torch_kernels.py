@@ -854,7 +854,7 @@ def test_segment_rows_plain_matches_pallas(rng, case):
     np.add.at(want, idx, upd.astype(np.float64))
     tol = dict(atol=2e-5, rtol=2e-4)
 
-    got = sg.segment_rows(torch.from_numpy(idx), _t(upd), nrows)
+    got = sg.segment_rows_plain(torch.from_numpy(idx), _t(upd), nrows)
     assert got.dtype == torch.float32 and got.shape == (nrows, 12)
     np.testing.assert_allclose(got.numpy(), want, **tol)
     ref = jsegsum.segment_rows_pallas(jnp.asarray(idx, jnp.int32),
@@ -864,18 +864,131 @@ def test_segment_rows_plain_matches_pallas(rng, case):
 
 def test_segment_rows_dtypes_and_dispatch(rng):
     """bf16 rows sum in float32 and come back bf16; float64 stays float64;
-    CPU tensors never launch the kernel."""
+    the sampler's backward on CPU tensors is the plain version and never
+    launches the kernel."""
+    from pcfa_tpu_torch.ops import warp
+
     idx = torch.from_numpy(rng.integers(0, 7, 300))
     upd = _t(rng.standard_normal((300, 5)))
-    before = sg.segment_rows_cuda.launches
-    want = sg.segment_rows(idx, upd.double(), 7)
+    want = sg.segment_rows_plain(idx, upd.double(), 7)
     assert want.dtype == torch.float64
-    got = sg.segment_rows(idx, upd.bfloat16(), 7)
+    got = sg.segment_rows_plain(idx, upd.bfloat16(), 7)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(
         got.float().numpy(),
         sg.segment_rows_plain(idx, upd.bfloat16().float(), 7).numpy(),
         rtol=1e-2, atol=1e-2)
-    np.testing.assert_allclose(sg.segment_rows(idx, upd, 7).numpy(),
+    np.testing.assert_allclose(sg.segment_rows_plain(idx, upd, 7).numpy(),
                                want.numpy(), atol=1e-5)
-    assert sg.segment_rows_cuda.launches == before
+
+    before = sg.warp_bwd_cuda.launches
+    args = _warp_state(rng, (2, 5, 6, 3), True)
+    for x, y in zip(sg.warp_bwd(*args), sg.warp_bwd_plain(*args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    img = _t(rng.standard_normal((2, 5, 6, 3))).requires_grad_()
+    grid = _t(rng.uniform(-1.2, 1.2, (2, 4, 4, 2))).requires_grad_()
+    for mode in ("zeros", "border"):
+        (warp.grid_sample(img, grid, False, mode) ** 2).sum().backward()
+    assert sg.warp_bwd_cuda.launches == before
+    with pytest.raises(ValueError, match="device"):
+        sg.warp_bwd(*[t.to("meta") if isinstance(t, torch.Tensor) else t
+                      for t in args])
+
+
+def _warp_state(rng, shape, zeros, coords=None, g_dtype=torch.float32):
+    """The packed sampler's saved forward state and a cotangent, as
+    `warp_bwd`'s arguments: an image of `shape`, and 2·(H+2)·(W+1)
+    samples at `coords` (B, Hg, Wg, 2) pixel positions (default: uniform
+    over the image and a pixel beyond each edge)."""
+    from pcfa_tpu_torch.ops import warp
+
+    B, H, W, C = shape
+    img = _t(rng.standard_normal(shape)).to(g_dtype)
+    if coords is None:
+        coords = rng.uniform(-1.5, 1.0, (B, H + 2, W + 1, 2)) * (W, H) \
+            + rng.uniform(0, 1, (B, H + 2, W + 1, 2)) * (2 * W, 2 * H)
+    ix, iy = _t(coords[..., 0]), _t(coords[..., 1])
+    idx, w4, mask4, a, b = warp._corner_weights(shape, ix, iy, zeros)
+    win = warp._pack_windows(img)[idx].reshape(-1, 4, C)
+    g = _t(rng.standard_normal((*ix.shape, C))).to(g_dtype)
+    return g, win, idx, w4, mask4, a, b, shape, img.dtype
+
+
+def _warp_bwd_emulated(g, win, idx, w4, mask4, a, b, shape):
+    """`csrc/segsum.cu`'s formulation in float64: each sample's window
+    base decoded from idx, each corner's w·g added to its clamped image
+    cell (a zero weight adds nothing), the four corner dots masked, then
+    the two bilinear formulas."""
+    B, H, W, C = shape
+    N = idx.shape[0]
+    g, win, w4, a, b = (t.double() for t in (g.reshape(N, C), win, w4,
+                                             a.reshape(N), b.reshape(N)))
+    c0, q = idx % (W + 1), idx // (W + 1)
+    r0, bb = q % (H + 1), q // (H + 1)
+    rows = [(r0 - 1).clamp(0, H - 1), r0.clamp(max=H - 1)]
+    cols = [(c0 - 1).clamp(0, W - 1), c0.clamp(max=W - 1)]
+    dimg = torch.zeros((B * H * W, C), dtype=torch.float64)
+    for k in range(4):
+        cell = (bb * H + rows[k // 2]) * W + cols[k % 2]
+        keep = w4[:, k] != 0
+        dimg.index_add_(0, cell[keep], w4[keep, k, None] * g[keep])
+    dot = (win * g[:, None, :]).sum(-1)
+    if mask4 is not None:
+        dot = torch.where(mask4, dot, 0.0)
+    dix = (1 - b) * (dot[:, 1] - dot[:, 0]) + b * (dot[:, 3] - dot[:, 2])
+    diy = (1 - a) * (dot[:, 2] - dot[:, 0]) + a * (dot[:, 3] - dot[:, 1])
+    return dimg.reshape(shape), dix, diy
+
+
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("case", ["c3", "c32_b2", "one_pixel_wide",
+                                  "one_cell", "nan_far"])
+def test_warp_bwd_clamped_splat_is_the_folds(rng, mode, case):
+    """The kernel's formulation (each corner's w·g straight onto its
+    clamped cell, zero weights skipped, dots in the same pass), emulated
+    in float64, equals the plain version's row-sum, four shifted adds and
+    border folds in float64 (1e-12): C = 3 and 32 at B = 2, a one-pixel-
+    wide image, every sample on one cell, NaN and ±1e30 coordinates."""
+    shape = {"c3": (2, 5, 7, 3), "c32_b2": (2, 4, 6, 32),
+             "one_pixel_wide": (1, 6, 1, 4), "one_cell": (1, 5, 6, 8),
+             "nan_far": (2, 4, 5, 3)}[case]
+    B, H, W, C = shape
+    coords = None
+    if case == "one_cell":
+        coords = np.broadcast_to((2.3, 1.6), (B, 9, 9, 2)).copy()
+    elif case == "nan_far":
+        coords = rng.uniform(-2, 6, (B, 4, 5, 2))
+        coords[0, 0] = [(np.nan, 1.0), (2.0, np.nan), (1e30, 1.0),
+                        (-1e30, 2.0), (1.5, 1e30)]
+        coords[1, 1, :2] = [(-1e30, -1e30), (W - 1.0, H - 1.0)]
+    args = _warp_state(rng, shape, mode == "zeros", coords)
+    got = _warp_bwd_emulated(*args[:-2], shape)
+    ref = sg.warp_bwd_plain(*(t.double() if isinstance(t, torch.Tensor)
+                              and t.is_floating_point() else t
+                              for t in args[:-1]), torch.float64)
+    for x, y in zip(got, ref):
+        assert y.dtype == torch.float64
+        torch.testing.assert_close(x.reshape(y.shape), y, rtol=1e-12,
+                                   atol=1e-12, equal_nan=True)
+    if case == "one_cell":
+        assert torch.count_nonzero(ref[0].abs().sum(-1)) == 4
+
+
+@pytest.mark.parametrize("c,max_vec,want", [
+    (3, 4, (0, 1)), (1, 2, (0, 1)), (32, 4, (4, 8)), (64, 4, (4, 16)),
+    (96, 4, (4, 32)), (128, 4, (4, 32)), (196, 4, (4, 32)), (32, 2, (2, 16)),
+    (6, 4, (2, 1)), (10, 4, (2, 2)), (17, 4, (1, 4))])
+def test_warp_bwd_plan_covers_every_channel_once(c, max_vec, want):
+    """The kernel's plan (V channels per lane and step, lanes per sample)
+    at the channel counts the warps give (PWCNet 32–128, FlowNet2's
+    3-channel images on the narrow kernel, PWCNet's 196 and odd widths),
+    and the channels its lanes visit (lane·V, then strides of lanes·V)
+    cover [0, C) once."""
+    vec, lanes = sg._plan(c, max_vec)
+    assert (vec, lanes) == want
+    if vec == 0:  # the narrow kernel: a thread per sample, C < 4
+        return
+    assert c % vec == 0 and vec <= max_vec and lanes & (lanes - 1) == 0
+    seen = [ch + j for lane in range(lanes)
+            for ch in range(lane * vec, c, lanes * vec) for j in range(vec)]
+    assert sorted(seen) == list(range(c))

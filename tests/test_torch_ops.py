@@ -222,6 +222,76 @@ def test_grid_sample_matches_jax(rng, monkeypatch, mode, align):
     np.testing.assert_allclose(tg.grad.numpy(), np.asarray(dg), atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("c", [3, 32])
+def test_warp_bwd_plain_matches_jax_packed_vjp(rng, monkeypatch, mode, c):
+    """The plain backward of the packed sampler (`segsum.warp_bwd_plain`,
+    the CPU path and the CUDA kernel's oracle), called directly on the
+    forward's saved state, against `pcfa_tpu`'s packed VJP (`jax.vjp` of
+    `grid_sample`, d img through the Pallas segsum in interpret mode).
+    Coordinates: a collision hotspot, the exact image corners
+    (align_corners=True maps ±1 onto the corner pixels), far outside, and
+    NaN (zeros mode: their weights are masked to 0). Both sides sample at
+    the JAX package's pixel coordinates, and d grid is (d ix, d iy)
+    carried back through their transform by `jax.vjp` (the clamp's
+    derivative exactly on the border is a convention each framework picks
+    differently, and not part of this function). float32: 2e-5 on d img
+    (sums of many corner rows), 1e-4 on d grid (scaled by W/2)."""
+    import jax
+
+    from pcfa_tpu_torch.ops import segsum
+
+    _jax_onehot_segsum(monkeypatch)
+    H, W = 9, 12
+    img = rng.standard_normal((2, H, W, c)).astype(np.float32)
+    grid = rng.uniform(-1.6, 1.6, (2, 7, 10, 2)).astype(np.float32)
+    grid[0, :3, :3] = (0.21, -0.37)           # many samples on one window
+    grid[1, 0, :3] = [(-1.0, -1.0), (1.0, 1.0), (1.0, -1.0)]  # corners
+    grid[1, 0, 3] = (40.0, -50.0)             # far outside
+    if mode == "zeros":
+        grid[1, 1, 0] = (np.nan, 0.3)
+        grid[1, 1, 1] = (0.2, np.nan)
+    g = rng.standard_normal((2, 7, 10, c)).astype(np.float32)
+
+    def coords(gr):  # `jwarp.grid_sample`'s, align_corners=True
+        ix = (gr[..., 0] + 1.0) * 0.5 * (W - 1)
+        iy = (gr[..., 1] + 1.0) * 0.5 * (H - 1)
+        if mode == "border":
+            ix, iy = jnp.clip(ix, 0.0, W - 1), jnp.clip(iy, 0.0, H - 1)
+        return ix, iy
+
+    (jx, jy), coords_vjp = jax.vjp(coords, jnp.asarray(grid))
+    ix, iy = _t(jx), _t(jy)
+    idx, w4, mask4, a, b = warp._corner_weights(img.shape, ix, iy,
+                                                mode == "zeros")
+    win = warp._pack_windows(_t(img))[idx].reshape(-1, 4, c)
+    dimg, dix, diy = segsum.warp_bwd_plain(_t(g), win, idx, w4, mask4, a, b,
+                                           img.shape, torch.float32)
+    (dgrid,) = coords_vjp((jnp.asarray(dix.numpy()), jnp.asarray(diy.numpy())))
+
+    def f(x, gr):
+        return jwarp.grid_sample(x, gr, align_corners=True, padding_mode=mode)
+
+    _, vjp = jax.vjp(f, jnp.asarray(img), jnp.asarray(grid))
+    di, dg = vjp(jnp.asarray(g))
+    assert dimg.dtype == torch.float32 and dimg.shape == img.shape
+    assert dix.shape == ix.shape and dix.dtype == torch.float32
+    np.testing.assert_allclose(dimg.numpy(), np.asarray(di), atol=2e-5)
+    np.testing.assert_allclose(np.asarray(dgrid), np.asarray(dg), atol=1e-4)
+    if mode == "zeros":
+        assert np.isnan(np.asarray(dgrid)[1, 1, :2]).any(axis=-1).all()
+    # each part alone is the same as both together
+    only_img = segsum.warp_bwd_plain(_t(g), win, idx, w4, mask4, a, b,
+                                     img.shape, torch.float32, True, False)
+    only_grid = segsum.warp_bwd_plain(_t(g), win, idx, w4, mask4, a, b,
+                                      img.shape, torch.float32, False, True)
+    assert only_img[1] is None and only_img[2] is None
+    assert only_grid[0] is None
+    torch.testing.assert_close(only_img[0], dimg, rtol=0, atol=0)
+    torch.testing.assert_close(only_grid[1:], (dix, diy), rtol=0, atol=0,
+                               equal_nan=True)
+
+
 def test_grid_sample_matches_torch(rng):
     """The packed sampler equals `F.grid_sample` (values), both padding
     modes, including a NaN coordinate (zeros mode: 0, like the JAX
