@@ -30,15 +30,27 @@ script then exits non-zero):
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
    128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
    pairs, both float32, on the CPU (plain versions) and on the card
-   (kernels): flows and input gradients;
+   (kernels): flows and input gradients. The same for GMA (gamma 0.5), and
+   for RAFT with `corr_impl='fused'` (blocks of 100 queries: the last one
+   short), with 'hybrid', and with `remat=True`, which must also agree with
+   the card's run without remat;
 4. main path, RAFT: the disjoint PCFA attack on full RAFT (12 iterations)
    at the KITTI shape (375×1242 padded to 376×1248), 2 random pairs at
    once, bf16 network and bf16 compact L-BFGS history, δ-bound 0.005, zero
    target, AEE, clipping, history 100; steps 2 × max_iter 2 so the run
    stays short;
-5. main path, PWCNet: the same attack on full PWCNet at 375×1242 padded
+5. main path, GMA: the same attack on full GMA (6 iterations) in RAFT's
+   environment;
+6. main path, PWCNet: the same attack on full PWCNet at 375×1242 padded
    to ÷64 (384×1280), 1 pair, bf16 network and a float32 L-BFGS history
-   (PWCNet refuses a bf16 one), in an environment of its own.
+   (PWCNet refuses a bf16 one), in an environment of its own;
+7. corr paths: one forward+backward closure of RAFT (12 iterations, bf16)
+   at 2× KITTI (750×2484 padded to 752×2488), 2 pairs, where 'auto' must
+   resolve to 'fused'; then 'hybrid' and 'materialized' (forced by the
+   budget knob): closure times, peak memory, agreeing flows;
+8. checkpoint: a RAFT file in the reference's shipped layout, written with
+   `torch.save`, loaded by `load_model(checkpoint=...)` on the card, and one
+   forward held against the same file loaded on the CPU.
 Every kernel of a path must be launched during that path's run (the
 counts are set to 0 just before it and read just after). Before each main
 path it times 2,000 tiny launches: the host's launch cost, which sets the
@@ -50,7 +62,9 @@ prints no result. `--profile` adds a `torch.profiler` table of one outer
 step of each main path (device busy share, device launches, top kernels
 by device time) and the device time and launches of one closure.
 `compare_warp()` and `compare_lookup()` time the warp's and the lookup's
-rows in a form any tree of the port runs (parent-vs-change comparisons).
+rows in a form any tree of the port runs (parent-vs-change comparisons);
+so do the main paths, one at a time: `phase_main_path(net, pairs)` inside
+`main_path_env(net)`. `phase_corr_paths()` runs phase 7 alone.
 """
 
 from __future__ import annotations
@@ -118,9 +132,14 @@ KERNELS = [
 PATH_KERNELS = {
     "RAFT": ["corr_lookup_fwd", "corr_lookup_bwd", "small_conv_fwd",
              "small_conv_dx"],
+    "GMA": ["corr_lookup_fwd", "corr_lookup_bwd", "small_conv_fwd",
+            "small_conv_dx"],
     "PWCNet": ["local_corr_fwd", "local_corr_bwd", "warp_bwd",
                "small_conv_fwd", "small_conv_dx"],
 }
+# GMA runs RAFT's encoders and lookup at RAFT's shapes: its kernel rows
+# are RAFT's
+ROW_PATH = {"GMA": "RAFT"}
 
 
 def wrapper(name: str):
@@ -141,6 +160,21 @@ def restored_env():
     finally:
         os.environ.clear()
         os.environ.update(saved)
+
+
+@contextlib.contextmanager
+def main_path_env(net: str):
+    """The environment of `net`'s main path: bf16 network and compact
+    L-BFGS; a bf16 history for RAFT and GMA, a float32 one for PWCNet
+    (it refuses a bf16 one)."""
+    with restored_env():
+        os.environ["PCFA_COMPUTE_DTYPE"] = "bfloat16"
+        os.environ["PCFA_LBFGS_DIRECTION"] = "compact"
+        if net == "PWCNet":
+            os.environ.pop("PCFA_LBFGS_DTYPE", None)
+        else:
+            os.environ["PCFA_LBFGS_DTYPE"] = "bfloat16"
+        yield
 
 
 def log(*args):
@@ -812,24 +846,26 @@ def compare_warp():
 
 # ------------------------------------------------------------------ 3 ---
 
-def card_vs_cpu(name, models, inputs, g):
-    """Run `models` {'cpu', 'cuda'} on the same float32 inputs, backprop
-    Σ flow·g and compare. Flows: rtol/atol 1e-3. Input gradients: float32
-    rounding switches a few ReLU/LeakyReLU units of a random-init net on or
-    off (pre-activations within ~1e-6 of the kink), which moves single
-    gradient elements by up to ~5e-3 of a ~0.2 scale on both devices
-    alike; so the gradients are held to a relative L2 error of 1e-2 and
-    99.5% of their elements to rtol/atol 1e-3."""
-    res = {}
-    for dev, model in models.items():
-        a = inputs[0].clone().to(dev).requires_grad_(True)
-        b = inputs[1].clone().to(dev).requires_grad_(True)
-        up = model(a, b)
-        up = up[-1] if isinstance(up, tuple) else up
-        (up * g.to(dev)).sum().backward()
-        res[dev] = [t.detach().cpu().double() for t in (up, a.grad, b.grad)]
-    up_c, *grads_c = res["cpu"]
-    up_g, *grads_g = res["cuda"]
+def run_flow(model, dev, inputs, g) -> list[torch.Tensor]:
+    """flow_up and the input gradients of Σ flow_up·g, on `dev`, as float64
+    on the CPU."""
+    a = inputs[0].clone().to(dev).requires_grad_(True)
+    b = inputs[1].clone().to(dev).requires_grad_(True)
+    up = model(a, b)
+    up = up[-1] if isinstance(up, tuple) else up
+    (up * g.to(dev)).sum().backward()
+    return [t.detach().cpu().double() for t in (up, a.grad, b.grad)]
+
+
+def check_agree(name, ref, got):
+    """Two `run_flow` results on the same float32 inputs. Flows: rtol/atol
+    1e-3. Input gradients: float32 rounding switches a few ReLU/LeakyReLU
+    units of a random-init net on or off (pre-activations within ~1e-6 of
+    the kink), which moves single gradient elements by up to ~5e-3 of a
+    ~0.2 scale on both devices alike; so the gradients are held to a
+    relative L2 error of 1e-2 and 99.5% of their elements to rtol/atol
+    1e-3."""
+    (up_c, *grads_c), (up_g, *grads_g) = ref, got
     err_up = float((up_g - up_c).abs().max())
     if not torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3):
         raise AssertionError(f"parity {name}: flow max abs err {err_up}")
@@ -842,15 +878,39 @@ def card_vs_cpu(name, models, inputs, g):
         if not (rel_l2 <= 1e-2 and within >= 0.995):
             raise AssertionError(f"parity {name}: {what} rel L2 {rel_l2}, "
                                  f"{within:.4%} within tolerance")
-    log(f"# parity card vs CPU ({name}): flow max abs err {err_up:.3g} "
+    log(f"# parity {name}: flow max abs err {err_up:.3g} "
         f"(scale {float(up_c.abs().max()):.3g}); " + "; ".join(
             f"{n}: rel L2 {r:.3g}, {w:.4%} within 1e-3, max abs {m:.3g}"
             for n, r, w, m in worst))
 
 
+def card_vs_cpu(name, models, inputs, g):
+    """Run `models` {'cpu', 'cuda'} on the same float32 inputs, backprop
+    Σ flow·g and compare (`check_agree`)."""
+    check_agree(f"card vs CPU ({name})",
+                run_flow(models["cpu"], "cpu", inputs, g),
+                run_flow(models["cuda"], "cuda", inputs, g))
+
+
+def damped(loaded, gamma=None):
+    """The module of `loaded` with its flow head's conv2 damped ×0.01, as
+    the parity tests do (a random recurrent net stays tame); GMA's residual
+    gain set to `gamma` (at its initial 0 the aggregation adds nothing)."""
+    m = loaded.module
+    with torch.no_grad():
+        m.update_block.flow_head.conv2.weight.mul_(0.01)
+        m.update_block.flow_head.conv2.bias.mul_(0.01)
+        if gamma is not None:
+            m.update_block.aggregator.gamma.fill_(gamma)
+    return m
+
+
 def phase_parity():
-    """Card (kernels) vs CPU (plain versions), float32: RAFT (flow-head
-    conv2 damped ×0.01, 3 iterations) and PWCNet, each 128×128, 2 pairs."""
+    """Card (kernels) vs CPU (plain versions), float32, each 128×128, 2
+    pairs: RAFT (flow-head conv2 damped ×0.01, 3 iterations), PWCNet, GMA
+    (also damped, gamma 0.5, 3 iterations), RAFT with the fused corr path
+    (blocks of 100 of each pair's 256 queries), with the hybrid one, and
+    with remat (which must also agree with the card without remat)."""
     import copy
 
     from pcfa_tpu_torch.runtime import load_model
@@ -860,20 +920,30 @@ def phase_parity():
               for _ in range(2))
     g = torch.from_numpy(rng.standard_normal((2, 128, 128, 2))
                          .astype(np.float32))
-    loaded = load_model("RAFT", init_random=True, seed=0, device="cpu",
-                        iters=3)
-    with torch.no_grad():
-        loaded.module.update_block.flow_head.conv2.weight.mul_(0.01)
-        loaded.module.update_block.flow_head.conv2.bias.mul_(0.01)
-    card_vs_cpu("RAFT 128x128, 3 iters, fp32",
-                {"cpu": loaded.module,
-                 "cuda": copy.deepcopy(loaded.module).to("cuda")},
-                (i1, i2), g)
+
+    def both(module):
+        return {"cpu": module, "cuda": copy.deepcopy(module).to("cuda")}
+
+    def raft(**kw):
+        return damped(load_model("RAFT", init_random=True, seed=0,
+                                 device="cpu", iters=3, **kw))
+
+    card_vs_cpu("RAFT 128x128, 3 iters, fp32", both(raft()), (i1, i2), g)
     loaded = load_model("PWCNet", init_random=True, seed=0, device="cpu")
-    card_vs_cpu("PWCNet 128x128, fp32",
-                {"cpu": loaded.module,
-                 "cuda": copy.deepcopy(loaded.module).to("cuda")},
+    card_vs_cpu("PWCNet 128x128, fp32", both(loaded.module), (i1, i2), g)
+    gma = damped(load_model("GMA", init_random=True, seed=0, device="cpu",
+                            iters=3), gamma=0.5)
+    card_vs_cpu("GMA 128x128, 3 iters, gamma 0.5, fp32", both(gma),
                 (i1, i2), g)
+    card_vs_cpu("RAFT corr_impl='fused', corr_block 100, fp32",
+                both(raft(corr_impl="fused", corr_block=100)), (i1, i2), g)
+    card_vs_cpu("RAFT corr_impl='hybrid', fp32",
+                both(raft(corr_impl="hybrid")), (i1, i2), g)
+    remat = both(raft(remat=True))
+    card_vs_cpu("RAFT remat=True, fp32", remat, (i1, i2), g)
+    check_agree("card, RAFT remat=True vs without remat",
+                run_flow(raft().to("cuda"), "cuda", (i1, i2), g),
+                run_flow(remat["cuda"], "cuda", (i1, i2), g))
 
 
 # ------------------------------------------------------------------ 4 ---
@@ -1022,6 +1092,188 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ 7 ---
+
+def phase_corr_paths(pairs: int = PAIRS, profile: bool = False) -> dict:
+    """One forward+backward closure (Σ flow·g to both images) of full RAFT
+    (12 iterations, bf16 network, random weights from seed 0) at 2× KITTI,
+    750×2484 padded to 752×2488, for `pairs` pairs, through each corr
+    path: 'auto', which must resolve to 'fused' there (the materialized
+    pyramid's estimate exceeds the default 6 GiB budget), 'hybrid', and
+    'materialized', forced by PCFA_CORR_HBM_BUDGET_MB. The path taken is
+    read from RAFT's call of `make_corr_lookup`. Per path: two closures'
+    wall times (CUDA-synchronised), peak memory, the lookup kernel's
+    launches. Flows and gradients must be finite; the fused and hybrid
+    flows must agree with the materialized one within 2e-2 of its largest
+    magnitude (bf16 networks: the paths round the correlation differently,
+    and 12 iterations carry it on; a CPU run of these three paths at
+    256×256 agreed within 4e-3). `profile` adds a profiler table of one
+    closure per path."""
+    from pcfa_tpu_torch.models import raft as raft_module
+    from pcfa_tpu_torch.ops import corr_lookup as cl
+    from pcfa_tpu_torch.ops.correlation import resolve_corr_impl
+    from pcfa_tpu_torch.runtime import load_model, make_flow_fn
+
+    hw = (2 * KITTI_HW[0], 2 * KITTI_HW[1])
+    rng = np.random.default_rng(0)
+    imgs = [torch.from_numpy(rng.random((pairs, *hw, 3)).astype(np.float32))
+            .cuda() for _ in range(2)]
+    g = torch.from_numpy(rng.standard_normal((pairs, *hw, 2))
+                         .astype(np.float32)).cuda()
+    taken = []
+    make_lookup = raft_module.make_corr_lookup
+
+    def recording(impl, *args):
+        taken.append(impl)
+        return make_lookup(impl, *args)
+
+    card, res = card_line(), {}
+    raft_module.make_corr_lookup = recording
+    try:
+        for label, impl, budget in (("auto", "auto", None),
+                                    ("hybrid", "hybrid", None),
+                                    ("materialized", "auto", "1000000")):
+            with restored_env():
+                os.environ["PCFA_COMPUTE_DTYPE"] = "bfloat16"
+                if budget is not None:
+                    os.environ["PCFA_CORR_HBM_BUDGET_MB"] = budget
+                loaded = load_model("RAFT", init_random=True, seed=0,
+                                    corr_impl=impl)
+                padder, flow_fn = make_flow_fn(loaded, hw, pad_mode="kitti")
+                x1, x2 = padder.pad(*imgs)
+
+                def closure():
+                    a, b = (x.detach().requires_grad_() for x in (x1, x2))
+                    flow = flow_fn(a, b)
+                    (flow * g).sum().backward()
+                    return flow, a, b
+
+                times, taken[:] = [], []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(2):
+                    launches = (cl.corr_window_fwd.launches,
+                                cl.corr_window_bwd.launches)
+                    t = time.perf_counter()
+                    flow, a, b = closure()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                launches = (cl.corr_window_fwd.launches - launches[0],
+                            cl.corr_window_bwd.launches - launches[1])
+                peak = torch.cuda.max_memory_allocated()
+                if profile:
+                    profile_step(closure, f"one closure through corr path "
+                                 f"{label} at 2x KITTI", top=12)
+                for what, v in (("flow", flow), ("d image1", a.grad),
+                                ("d image2", b.grad)):
+                    if not torch.isfinite(v).all():
+                        raise AssertionError(f"corr path {label}: {what} "
+                                             "not finite")
+                if flow.shape != (pairs, *hw, 2) or len(set(taken)) != 1:
+                    raise AssertionError(f"corr path {label}: flow "
+                                         f"{tuple(flow.shape)}, paths "
+                                         f"{taken}")
+                res[label] = dict(path=taken[0], times=times, peak=peak,
+                                  launches=launches, flow=flow.detach())
+                del loaded, flow_fn, a, b, flow
+                torch.cuda.empty_cache()
+    finally:
+        raft_module.make_corr_lookup = make_lookup
+
+    shape = (pairs, padder.padded_shape[0] // 8, padder.padded_shape[1] // 8,
+             256)
+    want = resolve_corr_impl("auto", shape, shape, 4, torch.bfloat16)
+    if not res["auto"]["path"] == want == "fused":
+        raise AssertionError(f"corr_impl='auto' at 2x KITTI took "
+                             f"{res['auto']['path']} (resolves to {want})")
+    if res["materialized"]["path"] != "materialized":
+        raise AssertionError("the budget knob did not force 'materialized'")
+    ref = res["materialized"]["flow"]
+    scale = float(ref.abs().max())
+    for label in ("auto", "hybrid"):
+        err = float((res[label]["flow"] - ref).abs().max())
+        res[label]["err"] = err
+        if not err <= 2e-2 * scale:
+            raise AssertionError(f"corr path {label}: flow differs from "
+                                 f"materialized by {err} (scale {scale})")
+    pyr = sum((shape[1] >> i) * (shape[2] >> i) for i in range(4))
+    est = 2 * pairs * shape[1] * shape[2] * pyr * 2
+    log(f"# corr paths, RAFT 12 iters bf16 at {hw[0]}x{hw[1]} padded to "
+        f"{padder.padded_shape}, {pairs} pairs (materialized estimate "
+        f"{est / 2**30:.2f} GiB against the default 6 GiB budget): " +
+        "; ".join(
+            f"{label} -> {r['path']}: closure {1e3 * min(r['times']):.1f} ms "
+            f"(runs {[round(1e3 * t, 1) for t in r['times']]}), peak "
+            f"{r['peak'] / 2**30:.2f} GiB, lookup kernel launches fwd/bwd "
+            f"{r['launches'][0]}/{r['launches'][1]} per closure"
+            + (f", flow vs materialized max abs {r['err']:.3g}"
+               if "err" in r else f", flow scale {scale:.3g}")
+            for label, r in res.items()) + f" [{card}]")
+    return res
+
+
+# ------------------------------------------------------------------ 8 ---
+
+def phase_checkpoint():
+    """A RAFT checkpoint in the reference's shipped layout: a random state
+    of the port's RAFT (seed 1) with every BatchNorm expanded to weight,
+    bias, running mean, running variance (positive) and
+    `num_batches_tracked`, every key prefixed `module.` (DataParallel),
+    written with `torch.save`. `load_model(checkpoint=...)` loads it on the
+    card; its folded BatchNorms must equal the fold computed here, and one
+    forward (128×128, 2 pairs, 3 iterations, float32) must agree with the
+    same file loaded on the CPU (rtol/atol 1e-3)."""
+    import tempfile
+
+    from pcfa_tpu_torch.models import make_model
+    from pcfa_tpu_torch.runtime import init_random_, load_model
+
+    gen = torch.Generator().manual_seed(2)
+    sd = {}
+    for k, v in init_random_(make_model("RAFT")[0], 1).state_dict().items():
+        if k.endswith(".scale"):
+            stem, c = k.removesuffix(".scale"), v.shape
+            sd[f"{stem}.weight"] = 1.0 + 0.2 * torch.randn(c, generator=gen)
+            sd[f"{stem}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+            sd[f"{stem}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+            sd[f"{stem}.num_batches_tracked"] = torch.tensor(1000)
+        else:
+            sd[k] = v
+    for p in ("weight", "bias"):
+        sd[f"update_block.flow_head.conv2.{p}"] = (
+            0.01 * sd[f"update_block.flow_head.conv2.{p}"])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "raft-sintel.pth")
+        torch.save({f"module.{k}": v for k, v in sd.items()}, path)
+        t = time.perf_counter()
+        card = load_model("RAFT", checkpoint=path, iters=3)
+        t_load = time.perf_counter() - t
+        cpu = load_model("RAFT", checkpoint=path, device="cpu", iters=3)
+    stem = "cnet.layer1.0.norm1"
+    scale = sd[f"{stem}.weight"] / torch.sqrt(sd[f"{stem}.running_var"]
+                                              + 1e-5)
+    got = card.module.state_dict()
+    if not (torch.equal(got[f"{stem}.scale"].cpu(), scale) and torch.equal(
+            got["fnet.conv1.weight"].cpu(), sd["fnet.conv1.weight"])):
+        raise AssertionError("checkpoint: loaded weights differ from the "
+                             "file's")
+    rng = np.random.default_rng(5)
+    x1, x2 = (torch.from_numpy(rng.random((2, 128, 128, 3))
+                               .astype(np.float32)) for _ in range(2))
+    with torch.no_grad():
+        up = card.module(x1.cuda(), x2.cuda())[1].cpu()
+        ref = cpu.module(x1, x2)[1]
+    err = float((up - ref).abs().max())
+    if not (torch.isfinite(up).all()
+            and torch.allclose(up, ref, rtol=1e-3, atol=1e-3)):
+        raise AssertionError(f"checkpoint: card flow differs from CPU's by "
+                             f"{err}")
+    log(f"# checkpoint: RAFT from a shipped-layout file ({len(sd)} keys, "
+        f"BatchNorms folded), loaded on the card in {t_load:.2f} s; forward "
+        f"128x128 card vs CPU max abs err {err:.3g} (scale "
+        f"{float(ref.abs().max()):.3g})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1036,18 +1288,14 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    with restored_env():
-        os.environ.setdefault("PCFA_COMPUTE_DTYPE", "bfloat16")
-        os.environ.setdefault("PCFA_LBFGS_DTYPE", "bfloat16")
-        os.environ.setdefault("PCFA_LBFGS_DIRECTION", "compact")
-        by_path = {"RAFT": phase_main_path("RAFT", PAIRS, profile)}
-    torch.cuda.empty_cache()
-    with restored_env():
-        # PWCNet refuses a bf16 history: unset, so float32
-        os.environ["PCFA_COMPUTE_DTYPE"] = "bfloat16"
-        os.environ["PCFA_LBFGS_DIRECTION"] = "compact"
-        os.environ.pop("PCFA_LBFGS_DTYPE", None)
-        by_path["PWCNet"] = phase_main_path("PWCNet", PWC_PAIRS, profile)
+    by_path = {}
+    for net, pairs in (("RAFT", PAIRS), ("GMA", PAIRS),
+                       ("PWCNet", PWC_PAIRS)):
+        with main_path_env(net):
+            by_path[net] = phase_main_path(net, pairs, profile)
+        torch.cuda.empty_cache()
+    phase_corr_paths(profile=profile)
+    phase_checkpoint()
 
     kernels = []
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1060,7 +1308,7 @@ def main() -> int:
         for net, n in by_path.items():
             if name in PATH_KERNELS[net]:
                 cand = [r for r in rows if r["name"] == name
-                        and r["path"] == net]
+                        and r["path"] == ROW_PATH.get(net, net)]
                 r = max([r for r in cand if r["dtype"] == "bfloat16"]
                         or cand, key=lambda r: r["bound_ms"])
                 paths[net] = dict(launches=n[name], **{k: r[k] for k in keys})

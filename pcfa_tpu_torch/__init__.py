@@ -10,12 +10,12 @@ Layout (mirrors `pcfa_tpu`):
                (`corr_lookup`, `small_conv`, `local_corr`, `segsum`)
                beside their plain versions
     csrc/      the kernels' CUDA C++ sources, built by `ops/_build.py`
-    models/    RAFT and PWCNet as `nn.Module`s, the model registry, weight
-               conversion
+    models/    RAFT, GMA and PWCNet as `nn.Module`s, the model registry,
+               weight conversion and the reference checkpoints' reader
     attack/    PCFA engine, L-BFGS with a leading pair axis, losses,
                targets, box constraints
     utils/     input padding
-    runtime.py `load_model` / `make_flow_fn`
+    runtime.py `load_model` (checkpoint or random weights) / `make_flow_fn`
     config.py  environment knobs shared with `pcfa_tpu`
 
 Entry points run on `device="cuda"` unless the caller passes

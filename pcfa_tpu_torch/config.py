@@ -1,6 +1,7 @@
 """Environment knobs shared with `pcfa_tpu/config.py` (same names, same
 defaults): `PCFA_LBFGS_DIRECTION`, `PCFA_LBFGS_DTYPE` (with its refusal
-for PWCNet), `PCFA_COMPUTE_DTYPE` and `PCFA_CORR_HBM_BUDGET_MB`."""
+for PWCNet), `PCFA_COMPUTE_DTYPE`, `PCFA_CORR_HBM_BUDGET_MB` and
+`PCFA_GRU_FUSED`."""
 
 from __future__ import annotations
 
@@ -52,3 +53,8 @@ def corr_hbm_budget_bytes() -> int:
     """Device-memory budget of the materialized corr pyramid (default
     6 GiB, PCFA_CORR_HBM_BUDGET_MB)."""
     return int(os.environ.get("PCFA_CORR_HBM_BUDGET_MB", "6144")) << 20
+
+
+def gru_fused() -> bool:
+    """PCFA_GRU_FUSED=1: the SepConvGRU's z and r gates as one conv."""
+    return os.environ.get("PCFA_GRU_FUSED", "0") == "1"

@@ -1,8 +1,10 @@
-"""Flow networks as `nn.Module`s plus the model registry. RAFT and PWCNet
-are ported so far."""
+"""Flow networks as `nn.Module`s plus the model registry. RAFT, GMA and
+PWCNet are ported so far."""
 
 from __future__ import annotations
 
+from pcfa_tpu_torch.models import convert
+from pcfa_tpu_torch.models.gma import GMA
 from pcfa_tpu_torch.models.pwcnet import PWCDCNet
 from pcfa_tpu_torch.models.raft import RAFT
 from pcfa_tpu_torch.models.spec import ModelSpec, get_spec, register
@@ -13,11 +15,24 @@ register(
         pad_divisor=8,
         iters=12,
         make=RAFT,
+        convert=convert.state_from_torch,
         defaults={"iters": 12},
     )
 )
 
-register(ModelSpec(name="PWCNet", pad_divisor=64, make=PWCDCNet))
+register(
+    ModelSpec(
+        name="GMA",
+        pad_divisor=8,
+        iters=6,  # the reference's adapter runs GMA with 6 iterations
+        make=GMA,
+        convert=convert.gma_state_from_torch,
+        defaults={"iters": 6},
+    )
+)
+
+register(ModelSpec(name="PWCNet", pad_divisor=64, make=PWCDCNet,
+                   convert=convert.pwcnet_state_from_torch))
 
 
 def make_model(name: str, **overrides):
@@ -30,5 +45,5 @@ def make_model(name: str, **overrides):
     return spec.make(**kwargs), spec
 
 
-__all__ = ["ModelSpec", "get_spec", "make_model", "register", "PWCDCNet",
-           "RAFT"]
+__all__ = ["ModelSpec", "get_spec", "make_model", "register", "GMA",
+           "PWCDCNet", "RAFT"]

@@ -1,13 +1,15 @@
-"""Weight bridges from the JAX package's parameter trees (RAFT, PWCNet) to
-this package's `state_dict`s.
+"""Weights for this package's `state_dict`s: bridges from the JAX
+package's parameter trees (RAFT, GMA, PWCNet), and the reader of the
+reference torch checkpoints.
 
 A tree is a nested dict of numpy arrays (as `pcfa_tpu` builds it from a
 checkpoint or from random init). Conv kernels go HWIO → OIHW; transposed
 conv kernels (flax `ConvTranspose`, taps flipped) go back to torch's
 unflipped IOHW; folded BatchNorms stay as scale/bias. Key names follow the
 reference torch networks, except that a BatchNorm carries `scale`/`bias`
-instead of its four running statistics, so loading a reference checkpoint
-later is this key map plus the BatchNorm fold.
+instead of its four running statistics, so reading a reference checkpoint
+(`load_torch_state`, then a network's `*_state_from_torch`) is a key map
+plus the BatchNorm fold.
 """
 
 from __future__ import annotations
@@ -63,6 +65,30 @@ def _encoder(out: dict, prefix: str, tree: Mapping) -> None:
 def raft_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """`pcfa_tpu` RAFT params {fnet, cnet, update_block} → `state_dict`."""
     out: dict = {}
+    _raft(out, tree)
+    return _tensors(out)
+
+
+def gma_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """`pcfa_tpu` GMA params → `state_dict`: RAFT's keys plus
+    `update_block.aggregator.{to_v.weight, gamma}` (and `project.weight`
+    when it has one), `att.to_qk.weight`, and in the positional variants
+    `att.pos_emb.rel_{height,width}.weight`."""
+    out: dict = {}
+    _raft(out, tree)
+    agg = tree["update_block"]["aggregator"]
+    _conv(out, "update_block.aggregator.to_v", agg["to_v"])
+    if "project" in agg:
+        _conv(out, "update_block.aggregator.project", agg["project"])
+    out["update_block.aggregator.gamma"] = np.asarray(agg["gamma"])
+    att = tree["att"]
+    _conv(out, "att.to_qk", att["to_qk"])
+    for k, table in att.get("pos_emb", {}).items():
+        out[f"att.pos_emb.{k}.weight"] = np.asarray(table)
+    return _tensors(out)
+
+
+def _raft(out: dict, tree: Mapping) -> None:
     _encoder(out, "fnet", tree["fnet"])
     _encoder(out, "cnet", tree["cnet"])
     ub = tree["update_block"]
@@ -74,7 +100,6 @@ def raft_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         _conv(out, f"update_block.flow_head.{k}", ub["flow_head"][k])
     _conv(out, "update_block.mask.0", ub["mask_conv1"])
     _conv(out, "update_block.mask.2", ub["mask_conv2"])
-    return _tensors(out)
 
 
 def pwcnet_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -97,3 +122,52 @@ def pwcnet_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 def _tensors(arrays: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in arrays.items()}
+
+
+def load_torch_state(path: str) -> dict[str, torch.Tensor]:
+    """A reference checkpoint as a flat state dict (tensors only,
+    `weights_only`): a `{'state_dict': …}` wrapper (PWCNet, FlowNet2) is
+    unwrapped and the `module.` prefix of a DataParallel state (RAFT, GMA)
+    stripped."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, Mapping) and "state_dict" in state:
+        state = state["state_dict"]
+    return {k.removeprefix("module."): v for k, v in state.items()}
+
+
+def state_from_torch(sd: Mapping[str, torch.Tensor], module=None,
+                     drop: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    """A reference state dict in this package's layout: every BatchNorm
+    (the stems with running statistics: RAFT's and GMA's `cnet`) folded
+    into `scale`/`bias` in eval mode (eps 1e-5), keys under the prefixes in
+    `drop` left out. Other keys pass as they are; their names already
+    follow the reference."""
+    bns = {k.removesuffix(".running_mean") for k in sd
+           if k.endswith(".running_mean")}
+    out = {}
+    for k, v in sd.items():
+        stem = k.rpartition(".")[0]
+        if not k.startswith(drop) and stem not in bns:
+            out[k] = v
+    for stem in bns:
+        scale = sd[f"{stem}.weight"] / torch.sqrt(
+            sd[f"{stem}.running_var"] + 1e-5)
+        out[f"{stem}.scale"] = scale
+        out[f"{stem}.bias"] = (sd[f"{stem}.bias"]
+                               - sd[f"{stem}.running_mean"] * scale)
+    return out
+
+
+def gma_state_from_torch(sd: Mapping[str, torch.Tensor],
+                         module) -> dict[str, torch.Tensor]:
+    """GMA: the relative-position tables (`att.pos_emb.*`, in every shipped
+    file) are kept only for a model with a positional attention variant."""
+    positional = hasattr(module.att, "pos_emb")
+    return state_from_torch(sd, drop=() if positional else ("att.pos_emb.",))
+
+
+def pwcnet_state_from_torch(sd: Mapping[str, torch.Tensor],
+                            module=None) -> dict[str, torch.Tensor]:
+    """PWCNet: the reference builds a `deconv2` that its forward never
+    uses; it is left out."""
+    return state_from_torch(sd, drop=("deconv2.",))

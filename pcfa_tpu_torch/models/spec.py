@@ -19,6 +19,8 @@ class ModelSpec:
     iters: int | None = None
     #: constructor returning the `nn.Module` (kwargs override defaults)
     make: Callable[..., Any] | None = None
+    #: (reference torch state_dict, module) → the module's `state_dict`
+    convert: Callable[..., Any] | None = None
     defaults: dict = dataclasses.field(default_factory=dict)
 
 

@@ -232,6 +232,89 @@ def test_corr_lookup_autograd_on_card(rng, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
+def test_hybrid_lookup_kernel_on_the_sub_pyramid(rng, cuda, dtype, tol):
+    """The hybrid path's levels 1..3: the kernel on the 3-level pyramid of
+    `corr_pyramid_pooled(start_level=1)` at coords / 2 scales its level l
+    by 2ˡ, so it reads pyramid level l + 1 at coords / 2ˡ⁺¹: against the
+    plain version on the same sub-pyramid and against levels 1..3 of the
+    plain lookup on the whole pyramid. Then `corr_lookup_hybrid` on the
+    card against the CPU, forward and d fmap1, d fmap2 (float32)."""
+    from pcfa_tpu_torch.ops.correlation import (corr_lookup_hybrid,
+                                                corr_pyramid_pooled)
+
+    # 16×24: the coarsest level is 2×3 (the plain lookup gives NaN on a
+    # level one cell high or wide)
+    f1, f2 = (_t(rng.standard_normal((2, 16, 24, 32))).to(cuda, dtype)
+              for _ in range(2))
+    coords = _t(rng.uniform(-3, 27, (2 * 16 * 24, 2))).to(cuda)
+    with torch.no_grad():
+        full = corr_pyramid_pooled(f1, f2, 4)
+        rest = corr_pyramid_pooled(f1, f2, 4, start_level=1)
+    assert [tuple(t.shape) for t in rest] == [tuple(t.shape)
+                                              for t in full[1:]]
+    got = cl.corr_window_fwd(list(rest), coords / 2, R)
+    torch.cuda.synchronize()
+    _close(got, cl.corr_window_plain(list(rest), coords / 2, R), tol)
+    _close(got, cl.corr_window_plain(list(full), coords, R)[:, P * P:], tol)
+
+    c4 = coords.reshape(2, 16, 24, 2)
+    g = _t(rng.standard_normal((2, 16, 24, 4 * P * P)))
+    res = []
+    for dev in ("cpu", cuda):
+        a, b = (t.detach().float().to(dev).requires_grad_() for t in (f1, f2))
+        rest = corr_pyramid_pooled(a, b, 4, start_level=1)
+        out = corr_lookup_hybrid(a, b, rest, c4.to(dev), R, block=100)
+        (out * g.to(dev)).sum().backward()
+        res.append([t.detach().cpu() for t in (out, a.grad, b.grad)])
+    for x, y in zip(*res[::-1]):
+        _close(x, y, 1e-4)
+
+
+@pytest.mark.cuda
+def test_gma_card_matches_cpu(cuda):
+    """A random GMA (flow-head conv2 damped ×0.01, gamma 0.5), 128×128, 3
+    iterations, float32: the card (lookup and small-conv kernels) against
+    the CPU (plain versions), flow_up and the input gradients of
+    Σ flow_up·g. Tolerances as `chip_smoke.card_vs_cpu`: flows rtol/atol
+    1e-3; gradients rel L2 1e-2 and 99.5% of the elements at 1e-3 (float32
+    rounding flips a few ReLU units of a random net on either device)."""
+    import copy
+
+    from pcfa_tpu_torch.ops import small_conv as sc
+    from pcfa_tpu_torch.runtime import load_model
+
+    module = load_model("GMA", init_random=True, seed=0, device="cpu",
+                        iters=3).module
+    with torch.no_grad():
+        module.update_block.flow_head.conv2.weight.mul_(0.01)
+        module.update_block.flow_head.conv2.bias.mul_(0.01)
+        module.update_block.aggregator.gamma.fill_(0.5)
+    gen = torch.Generator().manual_seed(0)
+    i1, i2 = (torch.rand((2, 128, 128, 3), generator=gen) for _ in range(2))
+    g = torch.randn((2, 128, 128, 2), generator=gen)
+    res = {}
+    launched = (cl.corr_window_fwd.launches, cl.corr_window_bwd.launches,
+                sc.small_conv_fwd.launches, sc.small_conv_dx.launches)
+    for dev, model in (("cpu", module),
+                       ("cuda", copy.deepcopy(module).to(cuda))):
+        a, b = (t.to(dev).detach().requires_grad_() for t in (i1, i2))
+        _, up = model(a, b)
+        (up * g.to(dev)).sum().backward()
+        res[dev] = [t.detach().cpu().double() for t in (up, a.grad, b.grad)]
+    now = (cl.corr_window_fwd.launches, cl.corr_window_bwd.launches,
+           sc.small_conv_fwd.launches, sc.small_conv_dx.launches)
+    assert all(n > w for n, w in zip(now, launched))
+    (up_c, *gc), (up_g, *gg) = res["cpu"], res["cuda"]
+    assert torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3)
+    for x, y in zip(gg, gc):
+        assert float((x - y).norm() / y.norm()) <= 1e-2
+        assert float(((x - y).abs() <= 1e-3 + 1e-3 * y.abs()).double()
+                     .mean()) >= 0.995
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("case", [
     # (B, C_in, H, W, C_out, k, stride, act)
     (2, 3, 64, 96, 64, 7, 2, None),

@@ -103,13 +103,8 @@ def test_corr_pyramid_pooled_matches_jax(rng):
 def test_resolve_corr_impl_matches_jax(shape):
     fshape, dt = shape
     ref = jcorr.resolve_corr_impl("auto", fshape, fshape, 4, getattr(jnp, dt))
-    if ref == "materialized":
-        assert correlation.resolve_corr_impl(
-            "auto", fshape, fshape, 4, getattr(torch, dt)) == ref
-    else:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            correlation.resolve_corr_impl("auto", fshape, fshape, 4,
-                                          getattr(torch, dt))
+    assert correlation.resolve_corr_impl(
+        "auto", fshape, fshape, 4, getattr(torch, dt)) == ref
 
 
 def test_resolve_corr_impl_budget_knob(monkeypatch):
@@ -117,10 +112,12 @@ def test_resolve_corr_impl_budget_knob(monkeypatch):
     monkeypatch.setenv("PCFA_CORR_HBM_BUDGET_MB", "1")
     assert jcorr.resolve_corr_impl("auto", shape, shape, 4,
                                    jnp.bfloat16) == "fused"
-    with pytest.raises(NotImplementedError):
-        correlation.resolve_corr_impl("auto", shape, shape, 4, torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        correlation.resolve_corr_impl("hybrid", shape, shape, 4,
+    assert correlation.resolve_corr_impl("auto", shape, shape, 4,
+                                         torch.bfloat16) == "fused"
+    assert correlation.resolve_corr_impl("hybrid", shape, shape, 4,
+                                         torch.float32) == "hybrid"
+    with pytest.raises(ValueError, match="corr_impl"):
+        correlation.resolve_corr_impl("volume", shape, shape, 4,
                                       torch.float32)
 
 

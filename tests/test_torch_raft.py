@@ -223,7 +223,11 @@ def test_runtime_flow_fn_on_cpu(monkeypatch):
     assert next(a.module.parameters()).dtype == torch.float32
 
 
-def test_runtime_refuses_missing_weights_and_gpu():
+def test_runtime_refuses_missing_weights_and_gpu(tmp_path, monkeypatch):
+    """No checkpoint at the default path (relative to the working
+    directory) and no init_random: FileNotFoundError. The default device
+    needs a GPU."""
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError, match="init_random=True"):
         runtime.load_model("RAFT", device="cpu")
     if not torch.cuda.is_available():
