@@ -9,16 +9,20 @@ at once) and needs one card. Phases, each of which raises on failure (the
 script then exits non-zero):
 
 1. build: toolchain, build time, the card's name and power limit;
-2. kernels: every kernel of the RAFT and PWCNet PCFA paths against its
-   plain PyTorch version on the card, at each main path's shapes (the
-   small conv at RAFT's and at all of PWCNet's, with PWCNet's leaky
-   epilogue and its derivative fused into dx), in float32 and bf16 (the
-   small conv's bf16 is its tensor-core kernel, float32 its CUDA-core
-   route), with kernel, plain-version and library-call times and the
-   bound (plus the patch correlation at FlowNetC's shape, and the warp's
-   backward at FlowNet2's full-resolution border warp of 3-channel
-   images). The warp's backward is one kernel for d img, d ix and d iy
-   (PWCNet's four warps and a collision case). The lookup's backward adds into
+2. kernels: every kernel of the RAFT, RAFT-small, SpyNet and PWCNet PCFA
+   paths against its plain PyTorch version on the card, at each main
+   path's shapes (the lookup at radius 4 and at RAFT-small's 3; the small
+   conv at RAFT's, at all of PWCNet's, with PWCNet's leaky epilogue and
+   its derivative fused into dx, and at SpyNet's 30 7×7 stride-1 convs,
+   bf16, with their sums per forward, float32 at the finest level), in
+   float32 and bf16 (the small conv's bf16 is its tensor-core kernel,
+   float32 its CUDA-core route), with kernel, plain-version and
+   library-call times and the bound (plus the patch correlation at
+   FlowNetC's shape, and the warp's backward at FlowNet2's full-resolution
+   border warp of 3-channel images). The warp's backward is one kernel for
+   d img, d ix and d iy (PWCNet's four warps, a collision case, and
+   SpyNet's six zero-padded warps of 3-channel images with the grid
+   clipped to [−1, 1]). The lookup's backward adds into
    buffers the caller owns: it is held against the plain accumulating
    backward over 4 launches, and a `corr_lookup_closure` row checks and
    times what one RAFT closure does with the lookup (the pyramid, 12
@@ -30,16 +34,19 @@ script then exits non-zero):
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
    128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
    pairs, both float32, on the CPU (plain versions) and on the card
-   (kernels): flows and input gradients. The same for GMA (gamma 0.5), and
-   for RAFT with `corr_impl='fused'` (blocks of 100 queries: the last one
-   short), with 'hybrid', and with `remat=True`, which must also agree with
-   the card's run without remat;
+   (kernels): flows and input gradients. The same for GMA (gamma 0.5),
+   RAFT-small (damped, 3 iterations) and SpyNet (6 levels), and for RAFT
+   with `corr_impl='fused'` (blocks of 100 queries: the last one short),
+   with 'hybrid', and with `remat=True`, which must also agree with the
+   card's run without remat;
 4. main path, RAFT: the disjoint PCFA attack on full RAFT (12 iterations)
    at the KITTI shape (375×1242 padded to 376×1248), 2 random pairs at
    once, bf16 network and bf16 compact L-BFGS history, δ-bound 0.005, zero
    target, AEE, clipping, history 100; steps 2 × max_iter 2 so the run
    stays short;
-5. main path, GMA: the same attack on full GMA (6 iterations) in RAFT's
+5. main paths, GMA, RAFT-small and SpyNet: the same attack on full GMA (6
+   iterations), RAFT-small (12 iterations, 376×1248) and SpyNet (6
+   levels, 375×1242 padded to ÷64, 384×1280), each at 2 pairs in RAFT's
    environment;
 6. main path, PWCNet: the same attack on full PWCNet at 375×1242 padded
    to ÷64 (384×1280), 1 pair, bf16 network and a float32 L-BFGS history
@@ -48,9 +55,11 @@ script then exits non-zero):
    at 2× KITTI (750×2484 padded to 752×2488), 2 pairs, where 'auto' must
    resolve to 'fused'; then 'hybrid' and 'materialized' (forced by the
    budget knob): closure times, peak memory, agreeing flows;
-8. checkpoint: a RAFT file in the reference's shipped layout, written with
-   `torch.save`, loaded by `load_model(checkpoint=...)` on the card, and one
-   forward held against the same file loaded on the CPU.
+8. checkpoint: a RAFT file and a RAFT-small file in the reference's
+   shipped layout and a SpyNet directory of per-layer files, written with
+   `torch.save`, loaded by `load_model(checkpoint=...)` on the card, and
+   one forward of each held against the same checkpoint loaded on the
+   CPU.
 Every kernel of a path must be launched during that path's run (the
 counts are set to 0 just before it and read just after). Before each main
 path it times 2,000 tiny launches: the host's launch cost, which sets the
@@ -87,6 +96,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core rate
 KITTI_HW = (375, 1242)
 PAIRS = 2
 R = 4
+R_SMALL = 3    # RAFT-small's lookup radius
 
 PWC_PAIRS = 1
 # PWCNet's correlation levels at 384×1280: (name, H, W, C)
@@ -136,10 +146,18 @@ PATH_KERNELS = {
             "small_conv_dx"],
     "PWCNet": ["local_corr_fwd", "local_corr_bwd", "warp_bwd",
                "small_conv_fwd", "small_conv_dx"],
+    "RAFT-small": ["corr_lookup_fwd", "corr_lookup_bwd"],
+    "SpyNet": ["small_conv_fwd", "small_conv_dx", "warp_bwd"],
 }
 # GMA runs RAFT's encoders and lookup at RAFT's shapes: its kernel rows
 # are RAFT's
 ROW_PATH = {"GMA": "RAFT"}
+
+# SpyNet at 384×1280: the six pyramid levels, coarsest first, and the five
+# 7×7 stride-1 convs of each level's block, (C_in, C_out, act)
+SPY_LEVELS = [(384 >> i, 1280 >> i) for i in range(5, -1, -1)]
+SPY_CONVS = [(8, 32, "relu"), (32, 64, "relu"), (64, 32, "relu"),
+             (32, 16, "relu"), (16, 2, None)]
 
 
 def wrapper(name: str):
@@ -290,27 +308,27 @@ def kitti_lookup_inputs(dtype, gen):
     return levels, coords.contiguous().to("cuda")
 
 
-def lookup_patch_cells(levels, coords) -> int:
+def lookup_patch_cells(levels, coords, r: int = R) -> int:
     """In-map cells of every query's (2r+2)² patch, all levels: what the
     lookup must read for this run's coords."""
     total = 0
     for i, lv in enumerate(levels):
         h, w = lv.shape[1:]
         c = coords / 2 ** i
-        x0 = torch.floor(c[:, 0]) - R
-        y0 = torch.floor(c[:, 1]) - R
-        side = 2 * R + 2
+        x0 = torch.floor(c[:, 0]) - r
+        y0 = torch.floor(c[:, 1]) - r
+        side = 2 * r + 2
         nx = (torch.clamp(x0 + side, 0, w) - torch.clamp(x0, 0, w)).clamp(min=0)
         ny = (torch.clamp(y0 + side, 0, h) - torch.clamp(y0, 0, h)).clamp(min=0)
         total += int((nx * ny).sum())
     return total
 
 
-def grid_sample_lookup(levels, coords):
+def grid_sample_lookup(levels, coords, r: int = R):
     """The library call: one `F.grid_sample` per level (the reference
     RAFT's CorrBlock form), used here as a yardstick only."""
-    p = 2 * R + 1
-    lin = torch.linspace(-R, R, p, device=coords.device)
+    p = 2 * r + 1
+    lin = torch.linspace(-r, r, p, device=coords.device)
     da, db = torch.meshgrid(lin, lin, indexing="ij")
     delta = torch.stack([da, db], -1)
     grids = []
@@ -349,6 +367,7 @@ def phase_kernels():
     rows = []
     kernels_raft(rows)
     kernels_pwc_conv(rows)
+    kernels_spynet_conv(rows)
     kernels_local_corr(rows)
     kernels_warp_bwd(rows)
     torch.cuda.empty_cache()
@@ -368,6 +387,7 @@ def kernels_raft(rows):
     for dtype, tol_l, tol_c in ((torch.float32, 1e-4, 1e-4),
                                 (torch.bfloat16, 3e-2, 3e-2)):
         lookup_rows(row, gen, dtype, tol_l)
+        lookup_rows(row, gen, dtype, tol_l, R_SMALL, "RAFT-small")
         lookup_closure(gen, dtype, tol_l)
         for tag, (B, c_in, h, w, c_out, k, s) in (
                 ("stem k7 s2 3->64", (4, 3, 376, 1248, 64, 7, 2)),
@@ -376,58 +396,59 @@ def kernels_raft(rows):
                       (B, c_in, h, w, c_out, k, s), None)
 
 
-def lookup_rows(row, gen, dtype, tol):
-    """The lookup's forward and its accumulating backward at RAFT's shape.
-    The backward adds into buffers the caller owns: 4 launches with
-    different coords into one zeroed set are held against the plain
-    accumulating backward (each launch's gradient rounded to the maps'
-    dtype and added), then one launch is timed. Its bound counts the
-    cotangent read and the in-map patch cells read and written."""
+def lookup_rows(row, gen, dtype, tol, r: int = R, path: str = "RAFT"):
+    """The lookup's forward and its accumulating backward at RAFT's shape
+    (RAFT-small's is the same, at radius 3). The backward adds into
+    buffers the caller owns: 4 launches with different coords into one
+    zeroed set are held against the plain accumulating backward (each
+    launch's gradient rounded to the maps' dtype and added), then one
+    launch is timed. Its bound counts the cotangent read and the in-map
+    patch cells read and written."""
     from pcfa_tpu_torch.ops import corr_lookup as cl
 
     isz = torch.empty((), dtype=dtype).element_size()
     levels, coords = kitti_lookup_inputs(dtype, gen)
     n = coords.shape[0]
-    shape = f"N={n} L=4 r=4 (47x156..5x19)"
-    out = cl.corr_window_fwd(levels, coords, R)
+    shape = f"N={n} L=4 r={r} (47x156..5x19)"
+    out = cl.corr_window_fwd(levels, coords, r)
     torch.cuda.synchronize()
-    err = check_close("corr lookup fwd", out,
-                      cl.corr_window_plain(levels, coords, R), tol)
+    err = check_close(f"corr lookup fwd r={r}", out,
+                      cl.corr_window_plain(levels, coords, r), tol)
     # grid_sample needs its grid in the map's dtype: a bf16 grid rounds
     # pixel positions, so in bf16 it is a timing yardstick only
-    grids = [gr.to(dtype) for gr in grid_sample_lookup(levels, coords)]
+    grids = [gr.to(dtype) for gr in grid_sample_lookup(levels, coords, r)]
     lib = graph_ms(lambda: [F.grid_sample(
         lv[:, None], g, mode="bilinear", padding_mode="zeros",
         align_corners=True) for lv, g in zip(levels, grids)])
-    cells = lookup_patch_cells(levels, coords)
-    fwd = lambda: cl.corr_window_fwd(levels, coords, R)  # noqa: E731
+    cells = lookup_patch_cells(levels, coords, r)
+    fwd = lambda: cl.corr_window_fwd(levels, coords, r)  # noqa: E731
     row("corr_lookup_fwd", dtype, shape, err, graph_ms(fwd),
-        cuda_ms(lambda: cl.corr_window_plain(levels, coords, R)), lib,
+        cuda_ms(lambda: cl.corr_window_plain(levels, coords, r)), lib,
         cells * isz + coords.numel() * 4 + out.numel() * isz,
-        3 * 3 * out.numel(), "RAFT", "graph", cuda_ms(fwd))
+        3 * 3 * out.numel(), path, "graph", cuda_ms(fwd))
 
     g = torch.randn(out.shape, generator=gen).to("cuda", dtype)
     got = [torch.zeros_like(t) for t in levels]
     ref = [torch.zeros_like(t) for t in levels]
     for i in range(4):
         c = coords + 2.0 * i
-        cl.corr_window_bwd(g, got, c, R)
-        cl.corr_window_bwd_acc_plain(g, ref, c, R)
+        cl.corr_window_bwd(g, got, c, r)
+        cl.corr_window_bwd_acc_plain(g, ref, c, r)
     torch.cuda.synchronize()
-    err = max(check_close("corr lookup bwd (4 launches)", a, b, tol)
+    err = max(check_close(f"corr lookup bwd r={r} (4 launches)", a, b, tol)
               for a, b in zip(got, ref))
-    p = 2 * R + 1
+    p = 2 * r + 1
     gs = [g[:, i * p * p:(i + 1) * p * p].reshape(n, 1, p, p)
           for i in range(len(levels))]
     lib = graph_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
         gl, lv[:, None], gr, 0, 0, True, [True, False])
         for gl, lv, gr in zip(gs, levels, grids)], reps=5)
-    bwd = lambda: cl.corr_window_bwd(g, got, coords, R)  # noqa: E731
+    bwd = lambda: cl.corr_window_bwd(g, got, coords, r)  # noqa: E731
     row("corr_lookup_bwd", dtype, shape, err, graph_ms(bwd),
-        cuda_ms(lambda: cl.corr_window_bwd_acc_plain(g, ref, coords, R),
+        cuda_ms(lambda: cl.corr_window_bwd_acc_plain(g, ref, coords, r),
                 reps=5), lib,
         g.numel() * isz + coords.numel() * 4 + 2 * cells * isz,
-        4 * 3 * cells, "RAFT", "graph", cuda_ms(bwd))
+        4 * 3 * cells, path, "graph", cuda_ms(bwd))
 
 
 def closure_inputs(gen, dtype, iters=12):
@@ -609,6 +630,44 @@ def kernels_pwc_conv(rows):
             f"{slowest['ms']:.4f} ms [{card_line()}]")
 
 
+def kernels_spynet_conv(rows):
+    """The small conv at SpyNet's 30 convs per forward at 384×1280 (2
+    pairs; 7×7 stride 1, ReLU on four of each level's five), bf16 (its
+    main path's dtype), graph-timed, each against the plain version; then
+    each time summed over the 30, as one forward runs them (and one
+    closure's backward their dx). float32 (the CUDA-core route, which no
+    main path runs) at the finest level's five, loop-timed. Bounds: the
+    larger of bytes and bf16 tensor-core (or float32) operations, per
+    row."""
+    gen = torch.Generator().manual_seed(5)
+    row = row_adder(rows)
+    log("# small conv vs plain (SpyNet's 7x7 stride-1 convs at 384x1280, "
+        "2 pairs)")
+    for dtype, tol, levels in ((torch.bfloat16, 3e-2, SPY_LEVELS),
+                               (torch.float32, 1e-4, SPY_LEVELS[-1:])):
+        n0 = len(rows)
+        for h, w in levels:
+            for c_in, c_out, act in SPY_CONVS:
+                conv_rows(row, gen, dtype, tol,
+                          f"k7 s1 {c_in}->{c_out} {act or 'none'}", "SpyNet",
+                          (PAIRS, c_in, h, w, c_out, 7, 1), act,
+                          graph=dtype == torch.bfloat16)
+            torch.cuda.empty_cache()
+        sums = {}
+        for r in rows[n0:]:
+            acc = sums.setdefault(r["name"], dict.fromkeys(
+                ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
+            for k in acc:
+                acc[k] += r[k]
+        timed = "graph" if dtype == torch.bfloat16 else "loop"
+        log(f"# small conv, SpyNet's {len(rows[n0:]) // 2} convs per forward"
+            f", {str(dtype)[6:]} ({timed}-timed): " + "; ".join(
+                f"{name} kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f}"
+                f" ms, library {a['library_ms']:.4f} ms, bound "
+                f"{a['bound_ms']:.4f} ms" for name, a in sums.items())
+            + f" [{card_line()}]")
+
+
 def valid_products(H: int, W: int, patch: int, stride: int) -> int:
     """(pixel, shift) pairs whose shifted pixel lies in the map: the
     products the correlation needs (zero padding needs none)."""
@@ -681,13 +740,17 @@ def kernels_local_corr(rows):
             f"{sum(sums['bound_ms'].values()):.4f} ms [{card_line()}]")
 
 
-def warp_state(gen, shape, dtype, zeros, collide=False):
+def warp_state(gen, shape, dtype, zeros, collide=False, spynet=False):
     """The packed sampler's saved forward state and a float32 cotangent
     (the warp's output is promoted to float32) on the card, as
     `warp_bwd`'s first seven arguments: one sample per pixel at the pixel
     grid plus a random flow of a few pixels (border mode: clamped to the
     image, as `grid_sample` clamps), or with `collide` every sample in
-    one 8×8 patch (a few samples per window base)."""
+    one 8×8 patch (a few samples per window base), or with `spynet` at
+    SpyNet's grid (`spynet_warp`: the grid clipped to [−1, 1], sampled
+    with align_corners=False, so a clipped sample lies half a pixel
+    outside the image and takes half its value from the zero border) for
+    a flow of 5% of the width."""
     from pcfa_tpu_torch.ops.warp import _corner_weights, _pack_windows
 
     B, H, W, C = shape
@@ -695,6 +758,14 @@ def warp_state(gen, shape, dtype, zeros, collide=False):
     if collide:
         ix, iy = (10.0 + 8.0 * torch.rand((B, H, W), generator=gen)
                   for _ in range(2))
+    elif spynet:
+        xs, ys = torch.linspace(-1.0, 1.0, W), torch.linspace(-1.0, 1.0, H)
+        base = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), -1)
+        flow = 0.05 * W * torch.randn((B, H, W, 2), generator=gen)
+        grid = (base + flow / torch.tensor([(W - 1) / 2, (H - 1) / 2])
+                ).clamp(-1.0, 1.0)
+        ix = ((grid[..., 0] + 1.0) * W - 1.0) * 0.5
+        iy = ((grid[..., 1] + 1.0) * H - 1.0) * 0.5
     else:
         ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W),
                                 indexing="ij")
@@ -712,36 +783,42 @@ def warp_state(gen, shape, dtype, zeros, collide=False):
 def kernels_warp_bwd(rows):
     """The packed sampler's backward (d img, d ix, d iy in one kernel) at
     PWCNet's four warps at 384×1280 (B = 1, zeros mode), a collision case
-    (level 2's samples in one 8×8 patch) and FlowNet2's full-resolution
-    border warp of 3-channel images (B = 1, 384×1280), with bf16 (PWCNet's
-    main path) and float32 images. Checked against the plain version on
-    the same inputs, 1e-4 of the largest plain value (float32 sums in the
-    atomics' varying order), d img taken as the float32 accumulator;
+    (level 2's samples in one 8×8 patch), FlowNet2's full-resolution
+    border warp of 3-channel images (B = 1, 384×1280) and SpyNet's six
+    warps of 3-channel images at 384×1280 (2 pairs, zeros mode, the grid
+    clipped to [−1, 1] and sampled with align_corners=False), with bf16
+    (PWCNet's and SpyNet's main path) and float32 images. Checked against
+    the plain version on the same inputs, 1e-4 of the largest plain value
+    (float32 sums in the atomics' varying order), d img taken as the
+    float32 accumulator;
     kernel times are the whole contract (zero fill, kernel, the cast of a
     bf16 image's gradient), graph-timed. Library: one
     `grid_sampler_2d_backward` (NCHW, float32 input and grid, both
     gradients). Bound: every input read once (g, the saved corners, idx,
     weights, fractions, mask), d img in the image's dtype and d ix, d iy
     written once; 16 float32 operations per sample and channel (four dot
-    products, four scaled adds). Prints the four PWCNet warps' sums per
-    closure."""
+    products, four scaled adds). Prints the four PWCNet warps' and the
+    six SpyNet warps' sums per closure."""
     from pcfa_tpu_torch.ops import segsum as sg
 
     gen = torch.Generator().manual_seed(2)
     row = row_adder(rows)
     log("# warp backward vs plain (PWCNet's warps and FlowNet2's image "
-        "warp at 384x1280, B = 1)")
-    cases = ([(n, (PWC_PAIRS, h, w, c), True, False, "PWCNet")
+        "warp at 384x1280, B = 1; SpyNet's six warps, 2 pairs)")
+    cases = ([(n, (PWC_PAIRS, h, w, c), True, {}, "PWCNet")
               for n, h, w, c in PWC_LEVELS[1:]]
-             + [("L2 collide", (PWC_PAIRS, 96, 320, 32), True, True, None),
-                ("FlowNet2 border", (1, 384, 1280, 3), False, False,
-                 "FlowNet2")])
+             + [("L2 collide", (PWC_PAIRS, 96, 320, 32), True,
+                 {"collide": True}, None),
+                ("FlowNet2 border", (1, 384, 1280, 3), False, {},
+                 "FlowNet2")]
+             + [(f"SpyNet L{i}", (PAIRS, h, w, 3), True, {"spynet": True},
+                 "SpyNet") for i, (h, w) in enumerate(SPY_LEVELS)])
     for dtype in (torch.float32, torch.bfloat16):
         isz = torch.empty((), dtype=dtype).element_size()
-        for tag, shape, zeros, collide, path in cases:
+        for tag, shape, zeros, kind, path in cases:
             B, H, W, C = shape
             state, (ix, iy), img = warp_state(gen, shape, dtype, zeros,
-                                              collide)
+                                              **kind)
             got = sg.warp_bwd_cuda(*state, shape, torch.float32)
             ref = sg.warp_bwd_plain(*state, shape, torch.float32)
             torch.cuda.synchronize()
@@ -765,14 +842,15 @@ def kernels_warp_bwd(rows):
                     [True, True])),
                 nbytes, 16 * a.numel() * C, path, "graph", cuda_ms(kernel))
             del state, img, got, ref, grid, gl, il
-        pwc = [r for r in rows[-len(cases):] if r["path"] == "PWCNet"]
-        sums = {k: sum(r[k] for r in pwc)
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        log(f"# warp backward, PWCNet's four warps per closure, "
-            f"{str(dtype)[6:]} image (graph-timed, warm L2): kernel "
-            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, library "
-            f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
-            f"[{card_line()}]")
+        for net, what in (("PWCNet", "four"), ("SpyNet", "six")):
+            sums = {k: sum(r[k] for r in rows[-len(cases):]
+                           if r["path"] == net)
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"# warp backward, {net}'s {what} warps per closure, "
+                f"{str(dtype)[6:]} image (graph-timed, warm L2): kernel "
+                f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
+                f"library {sums['library_ms']:.4f} ms, bound "
+                f"{sums['bound_ms']:.4f} ms [{card_line()}]")
 
 
 def compare_warp():
@@ -884,12 +962,48 @@ def check_agree(name, ref, got):
             for n, r, w, m in worst))
 
 
-def card_vs_cpu(name, models, inputs, g):
+def check_against_f64(name, ref, got, truth):
+    """Two float32 `run_flow` results, CPU (`ref`) and card (`got`), and
+    the CPU's float64 one (`truth`), for a net whose float32 input
+    gradients are far from its float64 ones on the CPU alone: the flows
+    at rtol/atol 1e-3; each gradient's relative L2 error against float64
+    at most twice the CPU float32's (at least 1e-6), and the card's within
+    1e-2 of the CPU's. The kernels then add no more error than float32
+    rounding already makes."""
+    (up_c, *grads_c), (up_g, *grads_g), (_, *grads_t) = ref, got, truth
+    err_up = float((up_g - up_c).abs().max())
+    if not torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"parity {name}: flow max abs err {err_up}")
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    worst = []
+    for what, gg, gc, gt in zip(("d image1", "d image2"), grads_g, grads_c,
+                                grads_t):
+        e_card, e_cpu, e_pair = rel(gg, gt), rel(gc, gt), rel(gg, gc)
+        worst.append((what, e_card, e_cpu, e_pair))
+        if not (e_card <= max(2 * e_cpu, 1e-6) and e_pair <= 1e-2):
+            raise AssertionError(
+                f"parity {name}: {what} rel L2 to float64: card {e_card}, "
+                f"CPU {e_cpu}; card to CPU {e_pair}")
+    log(f"# parity {name}: flow max abs err {err_up:.3g} "
+        f"(scale {float(up_c.abs().max()):.3g}); " + "; ".join(
+            f"{n}: rel L2 to the CPU's float64, card {c:.3g}, CPU float32 "
+            f"{p:.3g}; card to CPU {q:.3g}" for n, c, p, q in worst))
+
+
+def card_vs_cpu(name, models, inputs, g, f64=False):
     """Run `models` {'cpu', 'cuda'} on the same float32 inputs, backprop
-    Σ flow·g and compare (`check_agree`)."""
-    check_agree(f"card vs CPU ({name})",
-                run_flow(models["cpu"], "cpu", inputs, g),
-                run_flow(models["cuda"], "cuda", inputs, g))
+    Σ flow·g and compare (`check_agree`); with `f64` against the CPU
+    model's float64 run as well (`check_against_f64`)."""
+    import copy
+
+    ref = run_flow(models["cpu"], "cpu", inputs, g)
+    got = run_flow(models["cuda"], "cuda", inputs, g)
+    if not f64:
+        check_agree(f"card vs CPU ({name})", ref, got)
+        return
+    truth = run_flow(copy.deepcopy(models["cpu"]).double(), "cpu",
+                     [t.double() for t in inputs], g.double())
+    check_against_f64(f"card vs CPU ({name})", ref, got, truth)
 
 
 def damped(loaded, gamma=None):
@@ -908,9 +1022,10 @@ def damped(loaded, gamma=None):
 def phase_parity():
     """Card (kernels) vs CPU (plain versions), float32, each 128×128, 2
     pairs: RAFT (flow-head conv2 damped ×0.01, 3 iterations), PWCNet, GMA
-    (also damped, gamma 0.5, 3 iterations), RAFT with the fused corr path
-    (blocks of 100 of each pair's 256 queries), with the hybrid one, and
-    with remat (which must also agree with the card without remat)."""
+    (also damped, gamma 0.5, 3 iterations), RAFT-small (damped, 3
+    iterations), SpyNet (6 levels), RAFT with the fused corr path (blocks
+    of 100 of each pair's 256 queries), with the hybrid one, and with
+    remat (which must also agree with the card without remat)."""
     import copy
 
     from pcfa_tpu_torch.runtime import load_model
@@ -935,6 +1050,17 @@ def phase_parity():
                             iters=3), gamma=0.5)
     card_vs_cpu("GMA 128x128, 3 iters, gamma 0.5, fp32", both(gma),
                 (i1, i2), g)
+    small = damped(load_model("RAFT-small", init_random=True, seed=0,
+                              device="cpu", iters=3))
+    card_vs_cpu("RAFT-small 128x128, 3 iters, fp32", both(small), (i1, i2),
+                g)
+    # a random SpyNet's float32 input gradients differ from its float64
+    # ones by 1e-3 to 3e-3 of their norm on the CPU alone (the CPU's float32
+    # convolutions set which), more than `check_agree`'s elementwise share
+    # allows between two float32 runs: they are held against float64
+    spynet = load_model("SpyNet", init_random=True, seed=0, device="cpu")
+    card_vs_cpu("SpyNet 128x128, 6 levels, fp32", both(spynet.module),
+                (i1, i2), g, f64=True)
     card_vs_cpu("RAFT corr_impl='fused', corr_block 100, fp32",
                 both(raft(corr_impl="fused", corr_block=100)), (i1, i2), g)
     card_vs_cpu("RAFT corr_impl='hybrid', fp32",
@@ -1215,14 +1341,20 @@ def phase_corr_paths(pairs: int = PAIRS, profile: bool = False) -> dict:
 # ------------------------------------------------------------------ 8 ---
 
 def phase_checkpoint():
-    """A RAFT checkpoint in the reference's shipped layout: a random state
-    of the port's RAFT (seed 1) with every BatchNorm expanded to weight,
-    bias, running mean, running variance (positive) and
-    `num_batches_tracked`, every key prefixed `module.` (DataParallel),
-    written with `torch.save`. `load_model(checkpoint=...)` loads it on the
-    card; its folded BatchNorms must equal the fold computed here, and one
-    forward (128×128, 2 pairs, 3 iterations, float32) must agree with the
-    same file loaded on the CPU (rtol/atol 1e-3)."""
+    """Checkpoints in the reference's shipped layouts, written here, loaded
+    by `load_model(checkpoint=...)` on the card, each held against the
+    same file loaded on the CPU by one forward (128×128, 2 pairs,
+    float32, rtol/atol 1e-3):
+    * RAFT: a random state of the port's RAFT (seed 1) with every
+      BatchNorm expanded to weight, bias, running mean, running variance
+      (positive) and `num_batches_tracked`, every key prefixed `module.`
+      (DataParallel), written with `torch.save`, 3 iterations; its folded
+      BatchNorms must equal the fold computed here;
+    * RAFT-small: a random state (seed 3), keys prefixed `module.`, 3
+      iterations;
+    * SpyNet: a directory of per-layer files
+      `modelL{level}_F-{conv}-{weight,bias}.pth.tar` (seed 4), 6 levels.
+    Flow-head conv2s are damped ×0.01, as the parity phase does."""
     import tempfile
 
     from pcfa_tpu_torch.models import make_model
@@ -1239,39 +1371,68 @@ def phase_checkpoint():
             sd[f"{stem}.num_batches_tracked"] = torch.tensor(1000)
         else:
             sd[k] = v
-    for p in ("weight", "bias"):
-        sd[f"update_block.flow_head.conv2.{p}"] = (
-            0.01 * sd[f"update_block.flow_head.conv2.{p}"])
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "raft-sintel.pth")
-        torch.save({f"module.{k}": v for k, v in sd.items()}, path)
-        t = time.perf_counter()
-        card = load_model("RAFT", checkpoint=path, iters=3)
-        t_load = time.perf_counter() - t
-        cpu = load_model("RAFT", checkpoint=path, device="cpu", iters=3)
-    stem = "cnet.layer1.0.norm1"
-    scale = sd[f"{stem}.weight"] / torch.sqrt(sd[f"{stem}.running_var"]
-                                              + 1e-5)
-    got = card.module.state_dict()
-    if not (torch.equal(got[f"{stem}.scale"].cpu(), scale) and torch.equal(
-            got["fnet.conv1.weight"].cpu(), sd["fnet.conv1.weight"])):
-        raise AssertionError("checkpoint: loaded weights differ from the "
-                             "file's")
+    small = dict(init_random_(make_model("RAFT-small")[0], 3).state_dict())
+    for state in (sd, small):
+        for p in ("weight", "bias"):
+            state[f"update_block.flow_head.conv2.{p}"] = (
+                0.01 * state[f"update_block.flow_head.conv2.{p}"])
+    spy = init_random_(make_model("SpyNet")[0], 4).state_dict()
     rng = np.random.default_rng(5)
     x1, x2 = (torch.from_numpy(rng.random((2, 128, 128, 3))
                                .astype(np.float32)) for _ in range(2))
-    with torch.no_grad():
-        up = card.module(x1.cuda(), x2.cuda())[1].cpu()
-        ref = cpu.module(x1, x2)[1]
-    err = float((up - ref).abs().max())
-    if not (torch.isfinite(up).all()
-            and torch.allclose(up, ref, rtol=1e-3, atol=1e-3)):
-        raise AssertionError(f"checkpoint: card flow differs from CPU's by "
-                             f"{err}")
-    log(f"# checkpoint: RAFT from a shipped-layout file ({len(sd)} keys, "
-        f"BatchNorms folded), loaded on the card in {t_load:.2f} s; forward "
-        f"128x128 card vs CPU max abs err {err:.3g} (scale "
-        f"{float(ref.abs().max()):.3g})")
+    with tempfile.TemporaryDirectory() as d:
+        files = {"RAFT": os.path.join(d, "raft-sintel.pth"),
+                 "RAFT-small": os.path.join(d, "raft-small.pth"),
+                 "SpyNet": os.path.join(d, "spynet_weights")}
+        for name, state in (("RAFT", sd), ("RAFT-small", small)):
+            torch.save({f"module.{k}": v for k, v in state.items()},
+                       files[name])
+        os.makedirs(files["SpyNet"])
+        for lvl in range(6):
+            for j in range(5):
+                for p in ("weight", "bias"):
+                    torch.save(spy[f"moduleBasic.{lvl}.moduleBasic."
+                                   f"{2 * j}.{p}"],
+                               os.path.join(files["SpyNet"], f"modelL"
+                                            f"{lvl + 1}_F-{j + 1}-{p}"
+                                            ".pth.tar"))
+        for name, path in files.items():
+            kw = {} if name == "SpyNet" else {"iters": 3}
+            t = time.perf_counter()
+            card = load_model(name, checkpoint=path, **kw)
+            t_load = time.perf_counter() - t
+            cpu = load_model(name, checkpoint=path, device="cpu", **kw)
+            got = card.module.state_dict()
+            if name == "RAFT":
+                stem = "cnet.layer1.0.norm1"
+                scale = sd[f"{stem}.weight"] / torch.sqrt(
+                    sd[f"{stem}.running_var"] + 1e-5)
+                same = (torch.equal(got[f"{stem}.scale"].cpu(), scale)
+                        and torch.equal(got["fnet.conv1.weight"].cpu(),
+                                        sd["fnet.conv1.weight"]))
+            else:
+                want = small if name == "RAFT-small" else spy
+                same = all(torch.equal(got[k].cpu(), v)
+                           for k, v in want.items())
+            if not same:
+                raise AssertionError(f"checkpoint {name}: loaded weights "
+                                     "differ from the file's")
+            with torch.no_grad():
+                up = card.module(x1.cuda(), x2.cuda())
+                ref = cpu.module(x1, x2)
+            up, ref = ((o[-1] if isinstance(o, tuple) else o) for o in (up,
+                                                                        ref))
+            up = up.cpu()
+            err = float((up - ref).abs().max())
+            if not (torch.isfinite(up).all()
+                    and torch.allclose(up, ref, rtol=1e-3, atol=1e-3)):
+                raise AssertionError(f"checkpoint {name}: card flow differs "
+                                     f"from CPU's by {err}")
+            log(f"# checkpoint: {name} from a shipped-layout "
+                f"{'directory' if name == 'SpyNet' else 'file'} "
+                f"({len(got)} tensors), loaded on the card in {t_load:.2f} s;"
+                f" forward 128x128 card vs CPU max abs err {err:.3g} (scale "
+                f"{float(ref.abs().max()):.3g})")
 
 
 def main() -> int:
@@ -1290,6 +1451,7 @@ def main() -> int:
     phase_parity()
     by_path = {}
     for net, pairs in (("RAFT", PAIRS), ("GMA", PAIRS),
+                       ("RAFT-small", PAIRS), ("SpyNet", PAIRS),
                        ("PWCNet", PWC_PAIRS)):
         with main_path_env(net):
             by_path[net] = phase_main_path(net, pairs, profile)

@@ -1,5 +1,5 @@
-"""Flow networks as `nn.Module`s plus the model registry. RAFT, GMA and
-PWCNet are ported so far."""
+"""Flow networks as `nn.Module`s plus the model registry. RAFT, GMA,
+PWCNet, RAFT-small and SpyNet are ported so far."""
 
 from __future__ import annotations
 
@@ -7,7 +7,9 @@ from pcfa_tpu_torch.models import convert
 from pcfa_tpu_torch.models.gma import GMA
 from pcfa_tpu_torch.models.pwcnet import PWCDCNet
 from pcfa_tpu_torch.models.raft import RAFT
+from pcfa_tpu_torch.models.raft_small import RAFTSmall
 from pcfa_tpu_torch.models.spec import ModelSpec, get_spec, register
+from pcfa_tpu_torch.models.spynet import SpyNet
 
 register(
     ModelSpec(
@@ -34,6 +36,25 @@ register(
 register(ModelSpec(name="PWCNet", pad_divisor=64, make=PWCDCNet,
                    convert=convert.pwcnet_state_from_torch))
 
+register(
+    ModelSpec(
+        name="RAFT-small",
+        pad_divisor=8,
+        iters=12,
+        make=RAFTSmall,
+        convert=convert.raft_small_state_from_torch,
+        defaults={"iters": 12},
+    )
+)
+
+
+def _read_spynet(path: str, module: SpyNet) -> dict:
+    return convert.spynet_state_from_files(path, nlevels=module.nlevels)
+
+
+register(ModelSpec(name="SpyNet", pad_divisor=64, make=SpyNet,
+                   read=_read_spynet, defaults={"nlevels": 6}))
+
 
 def make_model(name: str, **overrides):
     """Construct the module for `name` (weights uninitialized).
@@ -46,4 +67,4 @@ def make_model(name: str, **overrides):
 
 
 __all__ = ["ModelSpec", "get_spec", "make_model", "register", "GMA",
-           "PWCDCNet", "RAFT"]
+           "PWCDCNet", "RAFT", "RAFTSmall", "SpyNet"]

@@ -1,6 +1,7 @@
 """Weights for this package's `state_dict`s: bridges from the JAX
-package's parameter trees (RAFT, GMA, PWCNet), and the reader of the
-reference torch checkpoints.
+package's parameter trees (RAFT, GMA, PWCNet, RAFT-small, SpyNet), and the
+readers of the reference torch checkpoints (one file, or SpyNet's
+directory of per-layer files).
 
 A tree is a nested dict of numpy arrays (as `pcfa_tpu` builds it from a
 checkpoint or from random init). Conv kernels go HWIO → OIHW; transposed
@@ -14,6 +15,7 @@ plus the BatchNorm fold.
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
@@ -119,6 +121,71 @@ def pwcnet_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def _small_encoder(out: dict, prefix: str, tree: Mapping) -> None:
+    """A `SmallEncoder`: convs only (its norms have no weights)."""
+    _conv(out, f"{prefix}.conv1", tree["conv1"])
+    _conv(out, f"{prefix}.conv2", tree["conv2"])
+    for i in (1, 2, 3):
+        for j in (0, 1):
+            blk, t = tree[f"layer{i}_{j}"], f"{prefix}.layer{i}.{j}"
+            for n in ("conv1", "conv2", "conv3"):
+                _conv(out, f"{t}.{n}", blk[n])
+            if "downsample" in blk:
+                _conv(out, f"{t}.downsample.0", blk["downsample"])
+
+
+def raft_small_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """`pcfa_tpu` RAFTSmall params → `state_dict`: the two `SmallEncoder`s
+    (`layer{i}.{j}.conv{1,2,3}`, `downsample.0` where strided; no norm
+    weights) and `update_block.{encoder, gru, flow_head}`."""
+    out: dict = {}
+    _small_encoder(out, "fnet", tree["fnet"])
+    _small_encoder(out, "cnet", tree["cnet"])
+    ub = tree["update_block"]
+    for k in ("convc1", "convf1", "convf2", "conv"):
+        _conv(out, f"update_block.encoder.{k}", ub["encoder"][k])
+    for k in ("convz", "convr", "convq"):
+        _conv(out, f"update_block.gru.{k}", ub["gru"][k])
+    for k in ("conv1", "conv2"):
+        _conv(out, f"update_block.flow_head.{k}", ub[f"flow_head_{k}"])
+    return _tensors(out)
+
+
+def _spynet_key(level: int, conv: int) -> str:
+    """Conv `conv` (0–4) of level `level`'s block: the reference's
+    Sequential holds a ReLU between two convs."""
+    return f"moduleBasic.{level}.moduleBasic.{2 * conv}"
+
+
+def spynet_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """`pcfa_tpu` SpyNet params {basic{level}: {conv{j}}} → `state_dict`."""
+    out: dict = {}
+    for name, block in tree.items():
+        level = int(name.removeprefix("basic"))
+        for j in range(5):
+            _conv(out, _spynet_key(level, j), block[f"conv{j}"])
+    return _tensors(out)
+
+
+def spynet_state_from_files(weights_dir: str, strmodel: str = "F",
+                            nlevels: int = 6) -> dict[str, torch.Tensor]:
+    """SpyNet's reference weights, one file per tensor:
+    `modelL{level+1}_{strmodel}-{conv+1}-{weight,bias}.pth.tar` (OIHW
+    weight, bias). The chairs models ('3', '4') have no level 6 and reuse
+    level 5's files there. A missing file raises FileNotFoundError."""
+    out = {}
+    for level in range(nlevels):
+        file_level = 4 if level == 5 and strmodel in ("3", "4") else level
+        for j in range(5):
+            stem = os.path.join(weights_dir, f"modelL{file_level + 1}_"
+                                f"{strmodel}-{j + 1}-")
+            for p in ("weight", "bias"):
+                out[f"{_spynet_key(level, j)}.{p}"] = torch.load(
+                    f"{stem}{p}.pth.tar", map_location="cpu",
+                    weights_only=True).float()
+    return out
+
+
 def _tensors(arrays: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in arrays.items()}
@@ -164,6 +231,13 @@ def gma_state_from_torch(sd: Mapping[str, torch.Tensor],
     file) are kept only for a model with a positional attention variant."""
     positional = hasattr(module.att, "pos_emb")
     return state_from_torch(sd, drop=() if positional else ("att.pos_emb.",))
+
+
+def raft_small_state_from_torch(sd: Mapping[str, torch.Tensor],
+                                module=None) -> dict[str, torch.Tensor]:
+    """RAFT-small: its encoders have instance norms or none, so there is no
+    BatchNorm to fold; the keys already follow the reference."""
+    return dict(sd)
 
 
 def pwcnet_state_from_torch(sd: Mapping[str, torch.Tensor],

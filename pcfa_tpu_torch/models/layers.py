@@ -1,11 +1,14 @@
-"""RAFT building blocks (`pcfa_tpu/models/layers.py`) as `nn.Module`s on
-NCHW, eval-mode: BatchNorm is folded into a per-channel scale/bias
-(`FrozenBatchNorm`), InstanceNorm is the parameter-free biased-variance
-form. Module names follow the reference torch RAFT's `state_dict` keys.
+"""RAFT-family building blocks (`pcfa_tpu/models/layers.py`) as
+`nn.Module`s on NCHW, eval-mode: BatchNorm is folded into a per-channel
+scale/bias (`FrozenBatchNorm`), InstanceNorm is the parameter-free
+biased-variance form. Module names follow the reference torch RAFT's
+`state_dict` keys.
 
-The stem (7×7/2, 3→64) and the four 3×3 layer1 convs of each encoder go
-through the small-conv kernel (`ops/small_conv.py`) on CUDA, as the Pallas
-kernel runs them on a TPU; every other conv is `F.conv2d`.
+In `BasicEncoder` (RAFT, GMA) the stem (7×7/2, 3→64) and the four 3×3
+layer1 convs go through the small-conv kernel (`ops/small_conv.py`) on
+CUDA, as the Pallas kernel runs them on a TPU; every other conv, and every
+conv of RAFT-small's `SmallEncoder` (which the JAX package also leaves to
+XLA), is `F.conv2d`.
 """
 
 from __future__ import annotations
@@ -110,6 +113,58 @@ class BasicEncoder(nn.Module):
         self.layer3 = nn.Sequential(ResidualBlock(96, 128, norm_fn, 2),
                                     ResidualBlock(128, 128, norm_fn, 1))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.norm1(self.conv1(x)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        return self.conv2(x)
+
+
+class BottleneckBlock(nn.Module):
+    """1×1 → 3×3 (stride) → 1×1 bottleneck, each conv followed by norm and
+    ReLU, with a strided 1×1 conv + norm shortcut when stride ≠ 1
+    (RAFT-small's encoders)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "instance",
+                 stride: int = 1):
+        super().__init__()
+        p4 = planes // 4
+        self.conv1 = nn.Conv2d(in_planes, p4, 1)
+        self.conv2 = nn.Conv2d(p4, p4, 3, stride, padding=1)
+        self.conv3 = nn.Conv2d(p4, planes, 1)
+        self.norm1 = make_norm(norm_fn, p4)
+        self.norm2 = make_norm(norm_fn, p4)
+        self.norm3 = make_norm(norm_fn, planes)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride),
+                make_norm(norm_fn, planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        y = torch.relu(self.norm3(self.conv3(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
+class SmallEncoder(nn.Module):
+    """7×7/2 stem (32) + bottleneck stages (32, 64, 96; strides 1/2/2) +
+    1×1 output conv → ÷8 feature map. NCHW in and out."""
+
+    def __init__(self, output_dim: int = 128, norm_fn: str = "instance"):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 32, 7, 2, padding=3)
+        self.norm1 = make_norm(norm_fn, 32)
+        c = 32
+        for i, (dim, stride) in enumerate(((32, 1), (64, 2), (96, 2)), 1):
+            setattr(self, f"layer{i}", nn.Sequential(
+                BottleneckBlock(c, dim, norm_fn, stride),
+                BottleneckBlock(dim, dim, norm_fn, 1)))
+            c = dim
+        self.conv2 = nn.Conv2d(96, output_dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.norm1(self.conv1(x)))

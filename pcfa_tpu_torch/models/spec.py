@@ -21,6 +21,10 @@ class ModelSpec:
     make: Callable[..., Any] | None = None
     #: (reference torch state_dict, module) → the module's `state_dict`
     convert: Callable[..., Any] | None = None
+    #: (checkpoint path, module) → the module's `state_dict`, for a
+    #: checkpoint that is not one torch file (SpyNet's weight directory);
+    #: None: `convert(load_torch_state(path), module)`
+    read: Callable[..., Any] | None = None
     defaults: dict = dataclasses.field(default_factory=dict)
 
 

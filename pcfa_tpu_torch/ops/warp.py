@@ -167,3 +167,12 @@ def interpolate_bilinear(img: torch.Tensor, out_hw: tuple[int, int],
     out = F.interpolate(img.permute(0, 3, 1, 2).to(dt), size=tuple(out_hw),
                         mode="bilinear", align_corners=align_corners)
     return out.permute(0, 2, 3, 1)
+
+
+def upflow(flow: torch.Tensor, factor: int = 8,
+           align_corners: bool = True) -> torch.Tensor:
+    """A flow field (B, H, W, 2) upsampled by `factor` and its magnitude
+    scaled with it (the reference RAFT's `upflow8`), in float32 at least."""
+    _, H, W, _ = flow.shape
+    return factor * interpolate_bilinear(flow, (factor * H, factor * W),
+                                         align_corners)

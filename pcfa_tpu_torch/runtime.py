@@ -8,8 +8,9 @@ the attack-facing flow function.
 returns the unpadded float32 flow (B, H, W, 2), the quantity entering the
 attack loss. Weights come from the reference torch checkpoint, by default
 at the path of `WEIGHT_PATHS` (relative to the working directory, as the
-reference and `pcfa_tpu` look them up); `init_random=True` stands in
-deterministic random weights where there is no file, drawn from a
+reference and `pcfa_tpu` look them up; SpyNet's is a directory of
+per-layer files, RAFT-small has none); `init_random=True` stands in
+deterministic random weights where there is no checkpoint, drawn from a
 `torch.Generator` with flax's default initializers (truncated-normal LeCun
 kernels, zero biases, unit BatchNorm scales).
 """
@@ -31,11 +32,13 @@ from pcfa_tpu_torch.models import make_model
 from pcfa_tpu_torch.models.convert import load_torch_state
 from pcfa_tpu_torch.utils.padder import InputPadder
 
-#: default checkpoint files of the ported networks (`pcfa_tpu/runtime.py`)
+#: default checkpoints of the ported networks (`pcfa_tpu/runtime.py`):
+#: files, and SpyNet's weight directory; RAFT-small has no default
 WEIGHT_PATHS = {
     "RAFT": "models/_pretrained_weights/raft-sintel.pth",
     "GMA": "models/_pretrained_weights/gma-sintel.pth",
     "PWCNet": "models/_pretrained_weights/pwc_net_chairs.pth.tar",
+    "SpyNet": "models/_pretrained_weights/spynet_weights",
 }
 
 # stddev of a unit-variance normal truncated to ±2 (flax lecun_normal)
@@ -87,21 +90,36 @@ def load_model(name: str = "RAFT", checkpoint: str | None = None,
     """Build the frozen (eval, no parameter gradients) module for `name`
     on `device` with the weights of `checkpoint` (default
     `WEIGHT_PATHS[name]`), read on the CPU (`torch.load(weights_only=True)`)
-    and loaded strictly. Where the file does not exist, `init_random=True`
-    gives random weights from `seed`; otherwise FileNotFoundError."""
+    and loaded strictly. Where there is no checkpoint, or it is incomplete
+    (a SpyNet directory that lacks a file), `init_random=True` gives random
+    weights from `seed`; otherwise FileNotFoundError."""
     dev = resolve_device(device)
     module, spec = make_model(name, **overrides)
-    path = checkpoint or WEIGHT_PATHS[name]
-    if os.path.exists(path):
-        module.load_state_dict(spec.convert(load_torch_state(path), module))
+    path = checkpoint or WEIGHT_PATHS.get(name)
+    hint = ("pass checkpoint=..., or pass init_random=True for "
+            "deterministic random weights.")
+    place = ("place the reference weights there (models/_pretrained_"
+             "weights/, as the reference's scripts/load_all_weights.sh "
+             "does), ")
+    state = None
+    if path is not None and os.path.exists(path):
+        try:
+            state = (spec.read(path, module) if spec.read is not None
+                     else spec.convert(load_torch_state(path), module))
+        except FileNotFoundError as e:
+            if not init_random:
+                raise FileNotFoundError(
+                    f"The {name} checkpoint at {path} is incomplete ({e}): "
+                    f"{place}{hint}") from e
+    if state is not None:
+        module.load_state_dict(state)
     elif init_random:
         init_random_(module, seed)
+    elif path is None:
+        raise FileNotFoundError(f"{name} has no default checkpoint: {hint}")
     else:
-        raise FileNotFoundError(
-            f"No {name} checkpoint at {path}: place the reference weights "
-            f"there (models/_pretrained_weights/, as the reference's "
-            f"scripts/load_all_weights.sh does), pass checkpoint=..., or "
-            f"pass init_random=True for deterministic random weights.")
+        raise FileNotFoundError(f"No {name} checkpoint at {path}: {place}"
+                                f"{hint}")
     module.eval().requires_grad_(False).to(dev)
     return LoadedModel(name=name, module=module, spec=spec, device=dev)
 

@@ -3,9 +3,9 @@ checkpoint=...)` against `pcfa_tpu.runtime.load_model` on the same file.
 
 The repository holds no pretrained weights, so each test writes a file in
 the layout the reference ships, with `torch.save`, from a random state of
-the port's network: RAFT and GMA as a DataParallel state (every key
-prefixed `module.`), PWCNet wrapped as `{'state_dict': …}` with the unused
-`deconv2` the reference builds. Every BatchNorm is expanded to weight,
+the port's network: RAFT, GMA and RAFT-small as a DataParallel state
+(every key prefixed `module.`), PWCNet wrapped as `{'state_dict': …}`
+with the unused `deconv2` the reference builds. Every BatchNorm is expanded to weight,
 bias, running mean, running variance (positive) and `num_batches_tracked`;
 GMA's file holds the relative-position tables of every shipped file. The
 flow head's conv2 is damped ×0.01 and GMA's `gamma` set to 0.5, as the
@@ -43,6 +43,7 @@ NETS = {
     "RAFT": ({"iters": 2}, 128, convert.raft_params_from_jax),
     "GMA": ({"iters": 2}, 128, convert.gma_params_from_jax),
     "PWCNet": ({}, 64, convert.pwcnet_params_from_jax),
+    "RAFT-small": ({"iters": 2}, 128, convert.raft_small_params_from_jax),
 }
 
 
@@ -63,7 +64,7 @@ def _shipped_state(name, seed=0) -> dict[str, torch.Tensor]:
             sd[k] = 0.05 * torch.randn(v.shape, generator=gen)
         else:
             sd[k] = v.clone()
-    if name in ("RAFT", "GMA"):
+    if name in ("RAFT", "GMA", "RAFT-small"):
         for p in ("weight", "bias"):
             sd[f"update_block.flow_head.conv2.{p}"] *= 0.01
     if name == "GMA":
@@ -132,8 +133,9 @@ def test_load_model_default_paths(tmp_path, monkeypatch):
     """Without `checkpoint`, `WEIGHT_PATHS[name]` under the working
     directory: absent, FileNotFoundError unless init_random=True; present,
     it is loaded. An explicit path wins, and an explicit missing path
-    raises too. Networks not ported yet raise a KeyError naming the
-    ported ones."""
+    raises too. RAFT-small has no default path and SpyNet's directory is
+    absent: FileNotFoundError, and each loads with init_random=True.
+    FlowNet2, not ported yet, raises a KeyError naming the ported ones."""
     monkeypatch.chdir(tmp_path)
     for name in NETS:
         with pytest.raises(FileNotFoundError, match="init_random=True"):
@@ -157,6 +159,11 @@ def test_load_model_default_paths(tmp_path, monkeypatch):
     got = runtime.load_model("RAFT", checkpoint=str(other), device="cpu")
     assert not torch.equal(got.module.state_dict()["fnet.conv1.weight"],
                            sd["fnet.conv1.weight"])
-    for name in ("SpyNet", "FlowNet2", "RAFT-small"):
-        with pytest.raises(KeyError, match="GMA"):
+    for name in ("SpyNet", "RAFT-small"):
+        with pytest.raises(FileNotFoundError, match="init_random=True"):
             runtime.load_model(name, device="cpu")
+        kw = {"iters": 1} if name == "RAFT-small" else {}
+        assert runtime.load_model(name, init_random=True, device="cpu",
+                                  **kw).name == name
+    with pytest.raises(KeyError, match="SpyNet"):
+        runtime.load_model("FlowNet2", device="cpu")

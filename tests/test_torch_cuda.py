@@ -84,13 +84,14 @@ def _lookup_case(rng, dev, dtype, pairs, shapes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("radius", [4, 7])
+@pytest.mark.parametrize("radius", [4, 7, 3])
 @pytest.mark.parametrize("pairs", [1, 2])
 def test_corr_lookup_kernel_matches_plain(rng, cuda, dtype, tol, radius,
                                           pairs):
     """Forward and the accumulating backward (into zeroed buffers) on
-    levels with odd widths, B = 1 and 2, RAFT's radius and the largest,
-    with in-map, border, out-of-map and non-finite coordinates."""
+    levels with odd widths, B = 1 and 2, RAFT's radius, the largest and
+    RAFT-small's, with in-map, border, out-of-map and non-finite
+    coordinates."""
     shapes = [(24, 37), (12, 19), (6, 9), (3, 5)]
     levels, c, keep = _lookup_case(rng, cuda, dtype, pairs, shapes)
     n, p = c.shape[0], 2 * radius + 1
@@ -336,6 +337,19 @@ def test_gma_card_matches_cpu(cuda):
     # RAFT's layer1 and stem at the KITTI shape, batch cut to 1
     (1, 64, 188, 624, 64, 3, 1, None),
     (1, 3, 376, 1248, 64, 7, 2, None),
+    # SpyNet's five 7×7 stride-1 convs (B = 2 pairs) at 24×80, where the
+    # plans cannot fill the card, with ReLU and without; its largest
+    # staging (32 -> 64, the masked dx: one block per SM) at 192×640; the
+    # last layer (16 -> 2) at 384×1280
+    (2, 8, 24, 80, 32, 7, 1, "relu"),
+    (2, 32, 24, 80, 64, 7, 1, "relu"),
+    (2, 64, 24, 80, 32, 7, 1, "relu"),
+    (2, 32, 24, 80, 16, 7, 1, "relu"),
+    (2, 16, 24, 80, 2, 7, 1, None),
+    (2, 8, 12, 40, 32, 7, 1, None),
+    (2, 64, 12, 40, 32, 7, 1, None),
+    (2, 32, 192, 640, 64, 7, 1, "relu"),
+    (2, 16, 384, 1280, 2, 7, 1, None),
 ])
 def test_small_conv_kernel_matches_plain(rng, cuda, dtype, tol, case):
     """Forward (bias, act) and dx (with the act derivative fused, from the
@@ -685,3 +699,93 @@ def test_grid_sample_autograd_on_card(rng, cuda, dtype):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     assert 1 <= launches <= (3 if dtype == torch.bfloat16 else 2), \
         launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spynet_warp_on_card(rng, cuda, dtype):
+    """SpyNet's warp (3 channels, zero padding, align_corners=False, the
+    grid clipped to [−1, 1]) at its six level sizes for 384×1280, B = 2,
+    flows large enough that many samples reach the zero border: one
+    backward kernel launch per warp, and the card's d img and d flow
+    against the CPU's (the plain backward). d img: float32 atomics in
+    varying order (1e-4 of the largest value), one bf16 rounding of a
+    bf16 image's gradient (1e-2); d flow 1e-4."""
+    from pcfa_tpu_torch.models.spynet import spynet_warp
+    from pcfa_tpu_torch.ops import segsum as sg
+
+    for i in range(5, -1, -1):
+        h, w = 384 >> i, 1280 >> i
+        img = _t(rng.standard_normal((2, h, w, 3))).to(dtype)
+        flow = _t(rng.standard_normal((2, h, w, 2)) * (0.05 * w))
+        g = _t(rng.standard_normal((2, h, w, 3)))
+        res = []
+        for dev in ("cpu", cuda):
+            a = img.to(dev).detach().requires_grad_()
+            f = flow.to(dev).detach().requires_grad_()
+            before = sg.warp_bwd_cuda.launches
+            (spynet_warp(a, f) * g.to(dev)).sum().backward()
+            torch.cuda.synchronize()
+            assert sg.warp_bwd_cuda.launches == before + (dev != "cpu")
+            res.append((a.grad.cpu(), f.grad.cpu()))
+        (da_c, df_c), (da_g, df_g) = res
+        assert da_g.dtype == dtype
+        _close(da_g, da_c, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+        _close(df_g, df_c, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["RAFT-small", "SpyNet"])
+def test_small_nets_card_match_cpu(cuda, name):
+    """A random RAFT-small (flow-head conv2 damped ×0.01, 3 iterations)
+    and SpyNet (6 levels), 128×128, 2 pairs, float32: the card (lookup at
+    radius 3; SpyNet's 7×7 convs and zero-padded warps) against the CPU,
+    the flow and the input gradients of Σ flow·g, as
+    `test_gma_card_matches_cpu` holds GMA. A random SpyNet's float32
+    input gradients differ from its float64 ones by 1e-3 to 3e-3 of their
+    norm on the CPU alone (the CPU's float32 convolutions set which), so
+    its gradients are held as
+    `chip_smoke.check_against_f64` holds them: the card's relative L2
+    error to the CPU's float64 gradient at most twice the CPU float32's,
+    and within 1e-2 of the CPU float32's."""
+    import copy
+
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.runtime import load_model
+
+    kw = {"iters": 3} if name == "RAFT-small" else {}
+    module = load_model(name, init_random=True, seed=0, device="cpu",
+                        **kw).module
+    if name == "RAFT-small":
+        with torch.no_grad():
+            module.update_block.flow_head.conv2.weight.mul_(0.01)
+            module.update_block.flow_head.conv2.bias.mul_(0.01)
+        counters = (cl.corr_window_fwd, cl.corr_window_bwd)
+    else:
+        counters = (sc.small_conv_fwd, sc.small_conv_dx, sg.warp_bwd_cuda)
+    gen = torch.Generator().manual_seed(0)
+    i1, i2 = (torch.rand((2, 128, 128, 3), generator=gen) for _ in range(2))
+    g = torch.randn((2, 128, 128, 2), generator=gen)
+    res = {}
+    launched = [c.launches for c in counters]
+    runs = (("cpu", module, torch.float32),
+            ("cuda", copy.deepcopy(module).to(cuda), torch.float32),
+            ("f64", copy.deepcopy(module).double(), torch.float64))
+    for key, model, dt in runs:
+        dev = cuda if key == "cuda" else "cpu"
+        a, b = (t.to(dev, dt).detach().requires_grad_() for t in (i1, i2))
+        up = model(a, b)
+        up = up[-1] if isinstance(up, tuple) else up
+        (up * g.to(dev, dt)).sum().backward()
+        res[key] = [t.detach().cpu().double() for t in (up, a.grad, b.grad)]
+    assert all(c.launches > n for c, n in zip(counters, launched))
+    (up_c, *gc), (up_g, *gg), (_, *gt) = res["cpu"], res["cuda"], res["f64"]
+    assert torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    for x, y, t in zip(gg, gc, gt):
+        assert rel(x, y) <= 1e-2
+        if name == "SpyNet":
+            assert rel(x, t) <= max(2 * rel(y, t), 1e-6)
+        else:
+            assert float(((x - y).abs() <= 1e-3 + 1e-3 * y.abs()).double()
+                         .mean()) >= 0.995

@@ -63,19 +63,19 @@ def _port_pyr(pyr, dtype=torch.float32, requires_grad=False):
             for lv in pyr]
 
 
-def test_lookup_plain_matches_mm_rf_and_pallas(rng):
+def _lookup_vs_jax(rng, radius):
     """Values and the cmap gradient against the JAX default lookup
     (`corr_lookup_mm_rf`) and the Pallas kernel in interpret mode. Both
     are float32 bilinear blends of the same map; 2e-5 / 1e-4 cover the
     different association of the two-tap sums."""
     pyr, coords = _lookup_inputs(rng)
     jp, jc = [jnp.asarray(lv) for lv in pyr], jnp.asarray(coords)
-    ref_mm = np.asarray(jcorr.corr_lookup_mm_rf(jp, jc, R))
-    ref_pl = np.asarray(corr_lookup_pallas(jp, jc, R, interpret=True))
+    ref_mm = np.asarray(jcorr.corr_lookup_mm_rf(jp, jc, radius))
+    ref_pl = np.asarray(corr_lookup_pallas(jp, jc, radius, interpret=True))
 
     levels = _port_pyr(pyr, requires_grad=True)
-    got = corr_lookup(levels, _t(coords), R)
-    assert got.shape == (1, 8, 8, 4 * P * P)
+    got = corr_lookup(levels, _t(coords), radius)
+    assert got.shape == (1, 8, 8, 4 * (2 * radius + 1) ** 2)
     np.testing.assert_allclose(got.detach().numpy(), ref_mm, atol=2e-5)
     np.testing.assert_allclose(got.detach().numpy(), ref_pl, atol=2e-5)
 
@@ -83,10 +83,20 @@ def test_lookup_plain_matches_mm_rf_and_pallas(rng):
     (got * _t(g)).sum().backward()
     for fn in (jcorr.corr_lookup_mm_rf,
                lambda p, c, r: corr_lookup_pallas(p, c, r, interpret=True)):
-        jg = jax.grad(lambda p: jnp.sum(fn(p, jc, R) * g))(jp)
+        jg = jax.grad(lambda p: jnp.sum(fn(p, jc, radius) * g))(jp)
         for lv, ref in zip(levels, jg):
             np.testing.assert_allclose(lv.grad.numpy(),
                                        np.asarray(ref)[..., 0], atol=1e-4)
+
+
+def test_lookup_plain_matches_mm_rf_and_pallas(rng):
+    """RAFT's radius 4 (`_lookup_vs_jax`)."""
+    _lookup_vs_jax(rng, R)
+
+
+def test_lookup_plain_matches_mm_rf_and_pallas_at_radius_3(rng):
+    """RAFT-small's radius 3: a 7×7 window, 196 channels over 4 levels."""
+    _lookup_vs_jax(rng, 3)
 
 
 def test_lookup_plain_bf16_matches_mm_rf(rng):
@@ -407,6 +417,8 @@ def _run_plan(inp, packed, plan, out_hw):
     (1, 5, 8, 9, 70, 5, 1),       # N split across blocks (3 groups)
     (1, 17, 7, 12, 3, 5, 2),      # k5 stride 2
     (1, 6, 1, 5, 8, 3, 2),        # H = 1: dx's odd-row classes are empty
+    (1, 8, 9, 13, 32, 7, 1),      # SpyNet's first conv: k7 s1, 49 taps
+    (1, 16, 6, 10, 2, 7, 1),      # SpyNet's last: N = 2, dx's K = 2
 ])
 def test_conv_packed_weights_run_as_plain_gemm(rng, case):
     """The bf16 kernel's plan and packed weights, run as plain float64
@@ -449,6 +461,30 @@ def test_conv_plans_fill_the_card_at_main_path_shapes(kind):
         plan = sc._plan("dx", (1, 3, 20, 22), 8, 7, 2)
         assert [(c.ty, c.tx) for c in plan.classes] == [(3, 3), (3, 4),
                                                         (4, 3), (4, 4)]
+
+
+# SpyNet's five 7×7 stride-1 convs per level at 384×1280 (B = 2 pairs):
+# (C_in, C_out) and the six level sizes, coarsest first
+SPYNET_CONVS = ((8, 32), (32, 64), (64, 32), (32, 16), (16, 2))
+SPYNET_LEVELS = tuple((384 >> i, 1280 >> i) for i in range(5, -1, -1))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_conv_plans_fit_spynet_shapes(kind):
+    """Every one of SpyNet's 30 convs per forward (k7 s1, ReLU on four)
+    plans within a block's shared memory, forward and dx, with and
+    without the staged forward output. From 48×160 up they fill the card
+    (≥ 2 × 132 blocks); 12×40 and 24×80 have too few output pixels to."""
+    for h, w in SPYNET_LEVELS:
+        for c_in, c_out in SPYNET_CONVS:
+            x_shape = (2, c_in, h, w)
+            for masked in ((False, True) if kind == "dx" else (False,)):
+                plan = sc._plan(kind, x_shape, c_out, 7, 1, masked)
+                assert plan.smem <= sc._SMEM_MAX, (x_shape, plan)
+                assert len(plan.classes) == 1
+                assert plan.classes[0].ty * plan.classes[0].tx == 49
+                if h >= 48:
+                    assert plan.blocks >= sc._MIN_BLOCKS, (x_shape, plan)
 
 
 def test_conv_cpu_dispatch_is_plain(rng):
