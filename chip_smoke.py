@@ -9,12 +9,16 @@ at once) and needs one card. Phases, each of which raises on failure (the
 script then exits non-zero):
 
 1. build: toolchain, build time, the card's name and power limit;
-2. kernels: every kernel of the RAFT, RAFT-small, SpyNet and PWCNet PCFA
-   paths against its plain PyTorch version on the card, at each main
-   path's shapes (the lookup at radius 4 and at RAFT-small's 3; the small
-   conv at RAFT's, at all of PWCNet's, with PWCNet's leaky epilogue and
-   its derivative fused into dx, and at SpyNet's 30 7×7 stride-1 convs,
-   bf16, with their sums per forward, float32 at the finest level), in
+2. kernels: every kernel of the RAFT, RAFT-small, SpyNet, PWCNet and
+   FlowNet2 PCFA paths against its plain PyTorch version on the card, at
+   each main path's shapes (the lookup at radius 4 and at RAFT-small's 3;
+   the small conv at RAFT's, at all of PWCNet's, with PWCNet's leaky
+   epilogue and its derivative fused into dx, at SpyNet's 30 7×7 stride-1
+   convs, bf16, with their sums per forward, float32 at the finest level,
+   and at FlowNet2's 22 distinct shapes of its 41 per forward, bf16, with
+   their sums, float32 at the k5 stride-2 shape and one transposed conv;
+   FlowNet2's transposed convs run as one 3×3 conv with the combined
+   weight and are also held against `F.conv_transpose2d`), in
    float32 and bf16 (the small conv's bf16 is its tensor-core kernel,
    float32 its CUDA-core route), with kernel, plain-version and
    library-call times and the bound (plus the patch correlation at
@@ -35,7 +39,9 @@ script then exits non-zero):
    128×128, 3 iterations, and a random-init PWCNet (seed 0), 128×128, 2
    pairs, both float32, on the CPU (plain versions) and on the card
    (kernels): flows and input gradients. The same for GMA (gamma 0.5),
-   RAFT-small (damped, 3 iterations) and SpyNet (6 levels), and for RAFT
+   RAFT-small (damped, 3 iterations), SpyNet (6 levels) and FlowNet2 (1
+   pair; SpyNet's and FlowNet2's gradients against the CPU's float64 as
+   well), and for RAFT
    with `corr_impl='fused'` (blocks of 100 queries: the last one short),
    with 'hybrid', and with `remat=True`, which must also agree with the
    card's run without remat;
@@ -48,20 +54,28 @@ script then exits non-zero):
    iterations), RAFT-small (12 iterations, 376×1248) and SpyNet (6
    levels, 375×1242 padded to ÷64, 384×1280), each at 2 pairs in RAFT's
    environment;
-6. main path, PWCNet: the same attack on full PWCNet at 375×1242 padded
-   to ÷64 (384×1280), 1 pair, bf16 network and a float32 L-BFGS history
-   (PWCNet refuses a bf16 one), in an environment of its own;
+6. main paths, PWCNet and FlowNet2: the same attack on full PWCNet at
+   375×1242 padded to ÷64 (384×1280), 1 pair, bf16 network and a float32
+   L-BFGS history (PWCNet refuses a bf16 one), in an environment of its
+   own; then on full FlowNet2 (random weights from seed 0, 162.5 M
+   parameters), 384×1280, 1 pair, bf16 network and a bf16 history;
 7. corr paths: one forward+backward closure of RAFT (12 iterations, bf16)
    at 2× KITTI (750×2484 padded to 752×2488), 2 pairs, where 'auto' must
    resolve to 'fused'; then 'hybrid' and 'materialized' (forced by the
    budget knob): closure times, peak memory, agreeing flows;
 8. checkpoint: a RAFT file and a RAFT-small file in the reference's
    shipped layout and a SpyNet directory of per-layer files, written with
-   `torch.save`, loaded by `load_model(checkpoint=...)` on the card, and
-   one forward of each held against the same checkpoint loaded on the
-   CPU.
+   `torch.save`, and a FlowNet2 file (`{'state_dict': …}`, ≈ 650 MB),
+   loaded by `load_model(checkpoint=...)` on the card, and one forward of
+   each held against the same checkpoint loaded on the CPU;
+9. other attacks: I-FGSM (2 steps) and the universal attack (2 batches ×
+   1 step × max_iter 2, the L-BFGS state carried) on full SpyNet at
+   384×1280, 2 pairs, in SpyNet's environment: finite metrics, the
+   history grown across the batches, the small conv and the warp's
+   backward launched.
 Every kernel of a path must be launched during that path's run (the
-counts are set to 0 just before it and read just after). Before each main
+counts are set to 0 just before it and read just after); each main path
+also prints its kernels' launches in one closure. Before each main
 path it times 2,000 tiny launches: the host's launch cost, which sets the
 pace of a host-bound step.
 
@@ -138,6 +152,36 @@ KERNELS = [
      "pcfa_tpu_torch/csrc/segsum.cu",
      "pcfa_tpu/ops/pallas/segsum.py:170"),
 ]
+# FlowNet2's 41 small-conv launches per forward at 384×1280 (1 pair), by
+# distinct shape: (layers, launches per forward, C_in, H, W, C_out, k,
+# stride, act) of a conv; for a transposed conv (k 4, stride 2, run as
+# one 3×3 conv with 4·C_out outputs and a depth-to-space), k is 4
+FN2_CONVS = [
+    ("C conv1 (both images)", 2, 3, 384, 1280, 64, 7, 2, "leaky"),
+    ("C conv2 x2, S1/S2 conv2", 4, 64, 192, 640, 128, 5, 2, "leaky"),
+    ("S1/S2 conv1", 2, 12, 384, 1280, 64, 7, 2, "leaky"),
+    ("SD conv0", 1, 6, 384, 1280, 64, 3, 1, "leaky"),
+    ("SD/Fusion conv1", 2, 64, 384, 1280, 64, 3, 2, "leaky"),
+    ("SD/Fusion conv1_1", 2, 64, 192, 640, 128, 3, 1, "leaky"),
+    ("Fusion conv0", 1, 11, 384, 1280, 64, 3, 1, "leaky"),
+    ("SD predict_flow3", 1, 128, 48, 160, 2, 3, 1, None),
+    ("SD predict_flow2", 1, 64, 96, 320, 2, 3, 1, None),
+    ("Fusion predict_flow2", 1, 128, 96, 320, 2, 3, 1, None),
+    ("Fusion inter_conv1", 1, 162, 192, 640, 32, 3, 1, None),
+    ("Fusion predict_flow1", 1, 32, 192, 640, 2, 3, 1, None),
+    ("Fusion inter_conv0", 1, 82, 384, 1280, 16, 3, 1, None),
+    ("Fusion predict_flow0", 1, 16, 384, 1280, 2, 3, 1, None),
+    ("C/S1/S2/SD upsampled_flow6_to_5", 4, 2, 6, 20, 2, 4, 2, None),
+    ("C/S1/S2/SD upsampled_flow5_to_4", 4, 2, 12, 40, 2, 4, 2, None),
+    ("C/S1/S2/SD upsampled_flow4_to_3", 4, 2, 24, 80, 2, 4, 2, None),
+    ("C/S1/S2/SD upsampled_flow3_to_2", 4, 2, 48, 160, 2, 4, 2, None),
+    ("Fusion upsampled_flow2_to_1", 1, 2, 96, 320, 2, 4, 2, None),
+    ("Fusion upsampled_flow1_to_0", 1, 2, 192, 640, 2, 4, 2, None),
+    ("Fusion deconv1", 1, 128, 96, 320, 32, 4, 2, "leaky"),
+    ("Fusion deconv0", 1, 162, 192, 640, 16, 4, 2, "leaky"),
+]
+FN2_PAIRS = 1
+
 # the kernels each main path must launch
 PATH_KERNELS = {
     "RAFT": ["corr_lookup_fwd", "corr_lookup_bwd", "small_conv_fwd",
@@ -148,6 +192,8 @@ PATH_KERNELS = {
                "small_conv_fwd", "small_conv_dx"],
     "RAFT-small": ["corr_lookup_fwd", "corr_lookup_bwd"],
     "SpyNet": ["small_conv_fwd", "small_conv_dx", "warp_bwd"],
+    "FlowNet2": ["small_conv_fwd", "small_conv_dx", "local_corr_fwd",
+                 "local_corr_bwd", "warp_bwd"],
 }
 # GMA runs RAFT's encoders and lookup at RAFT's shapes: its kernel rows
 # are RAFT's
@@ -183,8 +229,7 @@ def restored_env():
 @contextlib.contextmanager
 def main_path_env(net: str):
     """The environment of `net`'s main path: bf16 network and compact
-    L-BFGS; a bf16 history for RAFT and GMA, a float32 one for PWCNet
-    (it refuses a bf16 one)."""
+    L-BFGS; a bf16 history, except for PWCNet (it refuses one: float32)."""
     with restored_env():
         os.environ["PCFA_COMPUTE_DTYPE"] = "bfloat16"
         os.environ["PCFA_LBFGS_DIRECTION"] = "compact"
@@ -368,6 +413,7 @@ def phase_kernels():
     kernels_raft(rows)
     kernels_pwc_conv(rows)
     kernels_spynet_conv(rows)
+    kernels_flownet2_conv(rows)
     kernels_local_corr(rows)
     kernels_warp_bwd(rows)
     torch.cuda.empty_cache()
@@ -668,6 +714,121 @@ def kernels_spynet_conv(rows):
             + f" [{card_line()}]")
 
 
+def deconv_rows(row, gen, dtype, tol, tag, path, conv, act):
+    """One of FlowNet2's transposed convs (k 4, stride 2, padding 1) as the
+    port runs it: one stride-1 3×3 small-conv launch with the combined
+    weight (`models/flownet2.combined_deconv_weight`, 4·C_out outputs),
+    then `pixel_shuffle`. Forward and dx (the leaky derivative fused) are
+    held against the plain versions of that 3×3 conv, and the shuffled
+    output and the input gradient against `F.conv_transpose2d`'s in
+    float32. Library calls: `F.conv_transpose2d` (the row's library_ms)
+    and `F.conv2d` of the combined weight, both without the
+    epilogue, and their input gradients by `convolution_backward` (the
+    latter two printed beside the rows). Bound:
+    the transposed conv's own products (4 taps per output) and bytes.
+    Graph-timed."""
+    from pcfa_tpu_torch.models.flownet2 import combined_deconv_weight
+    from pcfa_tpu_torch.ops import small_conv as sc
+
+    B, c_in, h, w, co = conv
+    isz = torch.empty((), dtype=dtype).element_size()
+    x = torch.randn((B, c_in, h, w), generator=gen).to("cuda", dtype)
+    wt = (torch.randn((c_in, co, 4, 4), generator=gen)
+          / math.sqrt(16 * c_in)).to("cuda", dtype)
+    bias = torch.randn(co, generator=gen).to("cuda", dtype)
+    w3, b4 = combined_deconv_weight(wt, bias)
+    out = sc.small_conv_fwd(x, w3, b4, 1, act)
+    torch.cuda.synchronize()
+    err = check_close(f"deconv fwd {tag}", out, sc.conv_plain(
+        x.float(), w3.float(), b4.float(), 1, act), tol)
+    lib_out = sc._apply_act(F.conv_transpose2d(
+        x.float(), wt.float(), bias.float(), 2, 1), act)
+    check_close(f"deconv {tag} vs conv_transpose2d", F.pixel_shuffle(
+        out, 2), lib_out, tol)
+    flops = 2 * B * co * 4 * h * w * c_in * 4
+    shape = f"x={tuple(x.shape)} {tag}"
+    row("small_conv_fwd", dtype, shape, err,
+        graph_ms(lambda: sc.small_conv_fwd(x, w3, b4, 1, act)),
+        graph_ms(lambda: sc.conv_plain(x, w3, b4, 1, act)),
+        graph_ms(lambda: F.conv_transpose2d(x, wt, bias, 2, 1)),
+        (x.numel() + wt.numel() + co + out.numel()) * isz, flops, path,
+        "graph", cuda_ms(lambda: sc.small_conv_fwd(x, w3, b4, 1, act)))
+    conv_fwd = graph_ms(lambda: F.conv2d(x, w3, b4, 1, 1))
+
+    gout = torch.randn(out.shape, generator=gen).to("cuda", dtype)
+    od = out if act is not None else None
+    dx = sc.small_conv_dx(gout, w3, x.shape, 1, od, act)
+    torch.cuda.synchronize()
+    err = check_close(f"deconv dx {tag}", dx, sc.conv_dx_plain(
+        gout.float(), w3.float(), x.shape, 1,
+        None if od is None else od.float(), act), tol)
+    gk = sc._act_grad(gout, od, act)
+    g_up = F.pixel_shuffle(gk, 2)
+    xf = x.float().requires_grad_()
+    (xf_grad,) = torch.autograd.grad(F.conv_transpose2d(
+        xf, wt.float(), bias.float(), 2, 1), xf, g_up.float())
+    check_close(f"deconv dx {tag} vs conv_transpose2d", dx, xf_grad, tol)
+    row("small_conv_dx", dtype, shape, err,
+        graph_ms(lambda: sc.small_conv_dx(gout, w3, x.shape, 1, od, act)),
+        graph_ms(lambda: sc.conv_dx_plain(gout, w3, x.shape, 1, od, act)),
+        graph_ms(lambda: torch.ops.aten.convolution_backward(
+            g_up, x, wt, None, [2, 2], [1, 1], [1, 1], True, [0, 0], 1,
+            [True, False, False])),
+        (gout.numel() * (2 if act else 1) + wt.numel() + x.numel()) * isz,
+        flops, path, "graph",
+        cuda_ms(lambda: sc.small_conv_dx(gout, w3, x.shape, 1, od, act)))
+    conv_dx = graph_ms(lambda: torch.ops.aten.convolution_backward(
+        gk, x, w3, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, False, False]))
+    log(f"    {tag}: the combined 3x3 conv in cuDNN: fwd {conv_fwd:.4f} ms, "
+        f"dx {conv_dx:.4f} ms")
+
+
+def kernels_flownet2_conv(rows):
+    """The small conv at every distinct shape of FlowNet2's 41 launches per
+    forward at 384×1280 (1 pair): 14 `CL` (leaky; k7/k5 stride 2, C_in 3,
+    6, 11, 12, 64), 7 `PlainConv` (C_in up to 162, C_out ≤ 32) and 20
+    transposed convs run as one 3×3 conv each (`deconv_rows`), bf16 (the
+    main path's dtype), graph-timed; then each time summed over the 41
+    launches of one forward (and the dx of one closure's backward). Float32
+    (the CUDA-core route, which no main path runs) at the k5 stride-2 shape
+    and Fusion's deconv0."""
+    gen = torch.Generator().manual_seed(6)
+    row = row_adder(rows)
+    log("# small conv vs plain (FlowNet2's 41 per forward at 384x1280, "
+        "1 pair)")
+    f32 = [c for c in FN2_CONVS if c[6] == 5 or c[0] == "Fusion deconv0"]
+    for dtype, tol, convs in ((torch.bfloat16, 3e-2, FN2_CONVS),
+                              (torch.float32, 1e-4, f32)):
+        counts = []
+        for tag, n, c_in, h, w, c_out, k, s, act in convs:
+            kind = "deconv" if k == 4 else "conv"
+            label = f"{tag} {kind} k{k} s{s} {c_in}->{c_out}"
+            if k == 4:
+                deconv_rows(row, gen, dtype, tol, label, "FlowNet2",
+                            (FN2_PAIRS, c_in, h, w, c_out), act)
+            else:
+                conv_rows(row, gen, dtype, tol, label, "FlowNet2",
+                          (FN2_PAIRS, c_in, h, w, c_out, k, s), act,
+                          graph=True)
+            counts += [n, n]
+            torch.cuda.empty_cache()
+        if dtype != torch.bfloat16:
+            continue
+        sums = {}
+        for n, r in zip(counts, rows[-len(counts):]):
+            acc = sums.setdefault(r["name"], dict.fromkeys(
+                ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
+            for k in acc:
+                acc[k] += n * r[k]
+        log(f"# small conv, FlowNet2's {sum(counts) // 2} launches per "
+            f"forward, bf16 (graph-timed, warm L2): " + "; ".join(
+                f"{name} kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f}"
+                f" ms, library {a['library_ms']:.4f} ms, bound "
+                f"{a['bound_ms']:.4f} ms" for name, a in sums.items())
+            + f" [{card_line()}]")
+
+
 def valid_products(H: int, W: int, patch: int, stride: int) -> int:
     """(pixel, shift) pairs whose shifted pixel lies in the map: the
     products the correlation needs (zero padding needs none)."""
@@ -705,7 +866,7 @@ def kernels_local_corr(rows):
             err = check_close(f"local corr fwd {tag}", out,
                               lc.local_corr_plain(f1, f2, patch, stride), tol)
             shape = f"{tag} {PWC_PAIRS}x{h}x{w}x{c} p{patch} s{stride}"
-            path = "FlowNetC" if tag == "FlowNetC" else "PWCNet"
+            path = "FlowNet2" if tag == "FlowNetC" else "PWCNet"
             prods = PWC_PAIRS * valid_products(h, w, patch, stride) * c
             fwd = lambda: lc.local_corr_fwd(f1, f2, patch, stride)  # noqa
             row("local_corr_fwd", dtype, shape, err, graph_ms(fwd),
@@ -962,38 +1123,51 @@ def check_agree(name, ref, got):
             for n, r, w, m in worst))
 
 
-def check_against_f64(name, ref, got, truth):
+def check_against_f64(name, ref, got, truth, jittered=()):
     """Two float32 `run_flow` results, CPU (`ref`) and card (`got`), and
     the CPU's float64 one (`truth`), for a net whose float32 input
     gradients are far from its float64 ones on the CPU alone: the flows
     at rtol/atol 1e-3; each gradient's relative L2 error against float64
     at most twice the CPU float32's (at least 1e-6), and the card's within
     1e-2 of the CPU's. The kernels then add no more error than float32
-    rounding already makes."""
+    rounding already makes.
+
+    `jittered`: more CPU float32 results at inputs moved by about one
+    float32 ulp, for a net whose float32 gradient error is itself spread
+    widely by rounding (FlowNet2's moves between 1.6e-3 and 7.6e-3 of its
+    norm under such jitter, on the CPU alone): the card's error against
+    float64 is then held to twice the largest CPU float32 error of all
+    those runs, which takes the place of the 1e-2 card-to-CPU limit (two
+    draws from that band lie up to twice its width apart)."""
     (up_c, *grads_c), (up_g, *grads_g), (_, *grads_t) = ref, got, truth
     err_up = float((up_g - up_c).abs().max())
     if not torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3):
         raise AssertionError(f"parity {name}: flow max abs err {err_up}")
     rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
     worst = []
-    for what, gg, gc, gt in zip(("d image1", "d image2"), grads_g, grads_c,
-                                grads_t):
-        e_card, e_cpu, e_pair = rel(gg, gt), rel(gc, gt), rel(gg, gc)
+    for i, (what, gg, gc, gt) in enumerate(zip(("d image1", "d image2"),
+                                               grads_g, grads_c, grads_t)):
+        e_card, e_pair = rel(gg, gt), rel(gg, gc)
+        e_cpu = max(rel(r[1 + i], gt) for r in (ref, *jittered))
         worst.append((what, e_card, e_cpu, e_pair))
-        if not (e_card <= max(2 * e_cpu, 1e-6) and e_pair <= 1e-2):
+        if not (e_card <= max(2 * e_cpu, 1e-6)
+                and (jittered or e_pair <= 1e-2)):
             raise AssertionError(
                 f"parity {name}: {what} rel L2 to float64: card {e_card}, "
                 f"CPU {e_cpu}; card to CPU {e_pair}")
+    band = (f" (the largest of {1 + len(jittered)} runs, inputs jittered "
+            "by ~1 ulp)" if jittered else "")
     log(f"# parity {name}: flow max abs err {err_up:.3g} "
         f"(scale {float(up_c.abs().max()):.3g}); " + "; ".join(
             f"{n}: rel L2 to the CPU's float64, card {c:.3g}, CPU float32 "
-            f"{p:.3g}; card to CPU {q:.3g}" for n, c, p, q in worst))
+            f"{p:.3g}{band}; card to CPU {q:.3g}" for n, c, p, q in worst))
 
 
-def card_vs_cpu(name, models, inputs, g, f64=False):
+def card_vs_cpu(name, models, inputs, g, f64=False, jitter=0):
     """Run `models` {'cpu', 'cuda'} on the same float32 inputs, backprop
     Σ flow·g and compare (`check_agree`); with `f64` against the CPU
-    model's float64 run as well (`check_against_f64`)."""
+    model's float64 run as well (`check_against_f64`), with `jitter` more
+    CPU float32 runs at inputs scaled by 1 + 2e-7·N(0, 1)."""
     import copy
 
     ref = run_flow(models["cpu"], "cpu", inputs, g)
@@ -1003,7 +1177,11 @@ def card_vs_cpu(name, models, inputs, g, f64=False):
         return
     truth = run_flow(copy.deepcopy(models["cpu"]).double(), "cpu",
                      [t.double() for t in inputs], g.double())
-    check_against_f64(f"card vs CPU ({name})", ref, got, truth)
+    gen = torch.Generator().manual_seed(100)
+    jittered = [run_flow(models["cpu"], "cpu", [
+        t * (1 + 2e-7 * torch.randn(t.shape, generator=gen))
+        for t in inputs], g) for _ in range(jitter)]
+    check_against_f64(f"card vs CPU ({name})", ref, got, truth, jittered)
 
 
 def damped(loaded, gamma=None):
@@ -1023,7 +1201,8 @@ def phase_parity():
     """Card (kernels) vs CPU (plain versions), float32, each 128×128, 2
     pairs: RAFT (flow-head conv2 damped ×0.01, 3 iterations), PWCNet, GMA
     (also damped, gamma 0.5, 3 iterations), RAFT-small (damped, 3
-    iterations), SpyNet (6 levels), RAFT with the fused corr path (blocks
+    iterations), SpyNet (6 levels), FlowNet2 (1 pair; SpyNet and FlowNet2
+    also against the CPU's float64), RAFT with the fused corr path (blocks
     of 100 of each pair's 256 queries), with the hybrid one, and with
     remat (which must also agree with the card without remat)."""
     import copy
@@ -1061,6 +1240,13 @@ def phase_parity():
     spynet = load_model("SpyNet", init_random=True, seed=0, device="cpu")
     card_vs_cpu("SpyNet 128x128, 6 levels, fp32", both(spynet.module),
                 (i1, i2), g, f64=True)
+    # FlowNet2 likewise, one pair: its float32 input gradients lie 2e-4 to
+    # 8e-3 (rel L2) from its float64 ones on the CPU alone, as the inputs
+    # move by one float32 ulp; so against the band of 3 jittered runs
+    fn2 = load_model("FlowNet2", init_random=True, seed=0, device="cpu")
+    card_vs_cpu("FlowNet2 128x128, 1 pair, fp32", both(fn2.module),
+                (i1[:1], i2[:1]), g[:1], f64=True, jitter=3)
+    del fn2
     card_vs_cpu("RAFT corr_impl='fused', corr_block 100, fp32",
                 both(raft(corr_impl="fused", corr_block=100)), (i1, i2), g)
     card_vs_cpu("RAFT corr_impl='hybrid', fp32",
@@ -1123,7 +1309,7 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
     """The PCFA attack on full `net` at the KITTI shape, random pairs, from
     the entry points a user calls; the environment (compute dtype, L-BFGS
     direction and history dtype) is the caller's. Returns the launches of
-    every kernel during the run."""
+    every kernel during the run (and prints those of one closure)."""
     from pcfa_tpu_torch import config
     from pcfa_tpu_torch.attack import pcfa
     from pcfa_tpu_torch.runtime import load_model, make_flow_fn
@@ -1196,6 +1382,11 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         fwd_s.append(time.perf_counter() - t)
     closure, fwd = min(closure_s), min(fwd_s)
+    for w in wrappers.values():
+        w.launches = 0
+    value_and_grad(x)
+    per_closure = {name: w.launches for name, w in wrappers.items()
+                   if w.launches}
     if profile:
         profile_step(lambda: pcfa.pcfa_outer_step(
             flow_fn, image1, image2, target, flow_init, state, cfg))
@@ -1214,7 +1405,8 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
         f"extrapolated to the published config, pairs / (200 · iteration + "
         f"21 · forward): {1 / published:.5f} pairs/s (not a run of it); "
         f"peak memory {peak / 2**30:.2f} GiB [{card}]")
-    log(f"# main path {net} launches: {json.dumps(launches)}")
+    log(f"# main path {net} launches: {json.dumps(launches)}; per closure "
+        f"(forward and backward, {pairs} pairs): {json.dumps(per_closure)}")
     return launches
 
 
@@ -1353,7 +1545,9 @@ def phase_checkpoint():
     * RAFT-small: a random state (seed 3), keys prefixed `module.`, 3
       iterations;
     * SpyNet: a directory of per-layer files
-      `modelL{level}_F-{conv}-{weight,bias}.pth.tar` (seed 4), 6 levels.
+      `modelL{level}_F-{conv}-{weight,bias}.pth.tar` (seed 4), 6 levels;
+    * FlowNet2: a random state (seed 6, biases drawn too) wrapped as
+      `{'state_dict': …}` in a `.pth.tar` of ≈ 650 MB.
     Flow-head conv2s are damped ×0.01, as the parity phase does."""
     import tempfile
 
@@ -1377,16 +1571,23 @@ def phase_checkpoint():
             state[f"update_block.flow_head.conv2.{p}"] = (
                 0.01 * state[f"update_block.flow_head.conv2.{p}"])
     spy = init_random_(make_model("SpyNet")[0], 4).state_dict()
+    fn2 = dict(init_random_(make_model("FlowNet2")[0], 6).state_dict())
+    for k, v in fn2.items():
+        if k.endswith(".bias"):
+            fn2[k] = 0.05 * torch.randn(v.shape, generator=gen)
     rng = np.random.default_rng(5)
     x1, x2 = (torch.from_numpy(rng.random((2, 128, 128, 3))
                                .astype(np.float32)) for _ in range(2))
     with tempfile.TemporaryDirectory() as d:
         files = {"RAFT": os.path.join(d, "raft-sintel.pth"),
                  "RAFT-small": os.path.join(d, "raft-small.pth"),
-                 "SpyNet": os.path.join(d, "spynet_weights")}
+                 "SpyNet": os.path.join(d, "spynet_weights"),
+                 "FlowNet2": os.path.join(d, "FlowNet2_checkpoint.pth.tar")}
         for name, state in (("RAFT", sd), ("RAFT-small", small)):
             torch.save({f"module.{k}": v for k, v in state.items()},
                        files[name])
+        torch.save({"state_dict": fn2}, files["FlowNet2"])
+        fn2_mb = os.path.getsize(files["FlowNet2"]) / 2**20
         os.makedirs(files["SpyNet"])
         for lvl in range(6):
             for j in range(5):
@@ -1397,7 +1598,7 @@ def phase_checkpoint():
                                             f"{lvl + 1}_F-{j + 1}-{p}"
                                             ".pth.tar"))
         for name, path in files.items():
-            kw = {} if name == "SpyNet" else {"iters": 3}
+            kw = {} if name in ("SpyNet", "FlowNet2") else {"iters": 3}
             t = time.perf_counter()
             card = load_model(name, checkpoint=path, **kw)
             t_load = time.perf_counter() - t
@@ -1411,7 +1612,8 @@ def phase_checkpoint():
                         and torch.equal(got["fnet.conv1.weight"].cpu(),
                                         sd["fnet.conv1.weight"]))
             else:
-                want = small if name == "RAFT-small" else spy
+                want = {"RAFT-small": small, "SpyNet": spy,
+                        "FlowNet2": fn2}[name]
                 same = all(torch.equal(got[k].cpu(), v)
                            for k, v in want.items())
             if not same:
@@ -1428,11 +1630,107 @@ def phase_checkpoint():
                     and torch.allclose(up, ref, rtol=1e-3, atol=1e-3)):
                 raise AssertionError(f"checkpoint {name}: card flow differs "
                                      f"from CPU's by {err}")
+            size = f", {fn2_mb:.0f} MiB" if name == "FlowNet2" else ""
             log(f"# checkpoint: {name} from a shipped-layout "
                 f"{'directory' if name == 'SpyNet' else 'file'} "
-                f"({len(got)} tensors), loaded on the card in {t_load:.2f} s;"
+                f"({len(got)} tensors{size}), loaded on the card in "
+                f"{t_load:.2f} s;"
                 f" forward 128x128 card vs CPU max abs err {err:.3g} (scale "
                 f"{float(ref.abs().max()):.3g})")
+
+
+# ------------------------------------------------------------------ 9 ---
+
+def phase_other_attacks(pairs: int = PAIRS) -> dict:
+    """The I-FGSM and universal attacks on full SpyNet (6 levels, random
+    weights from seed 0) at 375×1242 padded to 384×1280, `pairs` random
+    pairs per batch, from the entry points a user calls, in the caller's
+    environment (main() gives SpyNet's: bf16 network, compact L-BFGS with
+    a bf16 history): I-FGSM 2 steps (ε 0.00025, zero target, AEE); the
+    universal attack on two batches, 1 step × max_iter 2 each, history
+    100, δ-bound 0.005 with the PCFA mu for a zero target, the L-BFGS
+    state carried from the first batch to the second. Checks finite
+    metrics of the right shapes, that the history count grew across the
+    batches and that both attacks launched the small conv (forward and
+    dx) and the warp's backward; prints times and launches."""
+    from pcfa_tpu_torch import config
+    from pcfa_tpu_torch.attack import fgsm, universal
+    from pcfa_tpu_torch.attack.losses import default_mu
+    from pcfa_tpu_torch.runtime import load_model, make_flow_fn
+
+    loaded = load_model("SpyNet", init_random=True, seed=0)
+    padder, flow_fn = make_flow_fn(loaded, KITTI_HW, pad_mode="kitti")
+    rng = np.random.default_rng(7)
+    batches = [padder.pad(*(torch.from_numpy(rng.random(
+        (pairs, *KITTI_HW, 3)).astype(np.float32)).cuda() for _ in range(2)))
+        for _ in range(2)]
+    target = torch.zeros((pairs, *KITTI_HW, 2), device="cuda")
+    names = ("small_conv_fwd", "small_conv_dx", "warp_bwd")
+    wrappers = {n: wrapper(n) for n in names}
+    card, res = card_line(), {}
+
+    def run(label, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items()}
+        missing = [n for n, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"{label} never launched {missing}")
+        res[label] = dict(seconds=secs, launches=launches)
+        return out
+
+    fcfg = fgsm.FGSMConfig(steps=2)
+    fres = run("I-FGSM", lambda: fgsm.fgsm_attack(
+        flow_fn, *batches[0], target, fcfg))
+    ucfg = universal.UniversalConfig(
+        steps=1, max_iter=2, delta_bound=0.005,
+        mu=default_mu(0.005, "zero"),
+        lbfgs_direction=config.lbfgs_direction(),
+        lbfgs_history_dtype=config.lbfgs_history_dtype("SpyNet"))
+    state = universal.universal_init((*padder.padded_shape, 3), ucfg)
+    counts, umetrics = [], []
+
+    def universal_run():
+        nonlocal state
+        for images1, images2 in batches:
+            state, m, _, pred = universal.universal_batch_attack(
+                flow_fn, images1, images2, target, state, ucfg)
+            counts.append(int(state.count[0]))
+            umetrics.append(m)
+        return pred
+
+    upred = run("universal", universal_run)
+    for label, metrics, shape in (
+            ("I-FGSM", fres.metrics, (pairs, fcfg.steps)),
+            *((f"universal batch {i}", m, (ucfg.steps,))
+              for i, m in enumerate(umetrics))):
+        for name, v in metrics._asdict().items():
+            if v.shape != shape or not torch.isfinite(v).all():
+                raise AssertionError(f"{label}: metric {name} {v}")
+    for what, v in (("I-FGSM flow", fres.flow_pred), ("universal flow",
+                                                        upred)):
+        if v.shape != (pairs, *KITTI_HW, 2) or not torch.isfinite(v).all():
+            raise AssertionError(f"{what}: {tuple(v.shape)}, not finite")
+    if not counts[1] > counts[0] >= 1:
+        raise AssertionError(f"universal: history counts {counts} did not "
+                             "grow across the batches")
+    log(f"# other attacks, SpyNet 6 levels at {padder.padded_shape}, "
+        f"{pairs} pairs, compute {os.environ.get('PCFA_COMPUTE_DTYPE')}: "
+        f"I-FGSM {fcfg.steps} steps in {res['I-FGSM']['seconds']:.3f} s, "
+        f"aee_adv_tgt per step {fres.metrics.aee_adv_tgt.tolist()}, "
+        f"launches {json.dumps(res['I-FGSM']['launches'])}; universal "
+        f"2 batches x {ucfg.steps} step x max_iter {ucfg.max_iter} in "
+        f"{res['universal']['seconds']:.3f} s, history count after each "
+        f"batch {counts}, aee_adv_tgt "
+        f"{[m.aee_adv_tgt.tolist() for m in umetrics]}, l2_delta12 "
+        f"{[m.l2_delta12.tolist() for m in umetrics]}, launches "
+        f"{json.dumps(res['universal']['launches'])} [{card}]")
+    return res
 
 
 def main() -> int:
@@ -1452,12 +1750,14 @@ def main() -> int:
     by_path = {}
     for net, pairs in (("RAFT", PAIRS), ("GMA", PAIRS),
                        ("RAFT-small", PAIRS), ("SpyNet", PAIRS),
-                       ("PWCNet", PWC_PAIRS)):
+                       ("PWCNet", PWC_PAIRS), ("FlowNet2", FN2_PAIRS)):
         with main_path_env(net):
             by_path[net] = phase_main_path(net, pairs, profile)
         torch.cuda.empty_cache()
     phase_corr_paths(profile=profile)
     phase_checkpoint()
+    with main_path_env("SpyNet"):
+        phase_other_attacks()
 
     kernels = []
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",

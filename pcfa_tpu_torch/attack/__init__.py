@@ -1,6 +1,13 @@
-"""Attack engine: PCFA with L-BFGS over a leading pair axis, losses,
-targets and box constraints."""
+"""Attack engines: PCFA with L-BFGS over a leading pair axis, I-FGSM, the
+universal perturbation; losses, targets and box constraints."""
 
+from pcfa_tpu_torch.attack.fgsm import (
+    FGSMConfig,
+    FGSMMetrics,
+    FGSMResult,
+    fgsm_attack,
+    fgsm_step,
+)
 from pcfa_tpu_torch.attack.lbfgs import (
     LBFGSState,
     lbfgs_init,
@@ -15,9 +22,19 @@ from pcfa_tpu_torch.attack.pcfa import (
     pcfa_init,
     pcfa_outer_step,
 )
+from pcfa_tpu_torch.attack.universal import (
+    UniversalConfig,
+    UniversalMetrics,
+    universal_batch_attack,
+    universal_init,
+    unpack_deltas,
+)
 
 __all__ = [
+    "FGSMConfig", "FGSMMetrics", "FGSMResult", "fgsm_attack", "fgsm_step",
     "LBFGSState", "lbfgs_init", "lbfgs_iteration", "lbfgs_run",
     "PCFAConfig", "PCFAMetrics", "PCFAResult", "pcfa_attack", "pcfa_init",
     "pcfa_outer_step",
+    "UniversalConfig", "UniversalMetrics", "universal_batch_attack",
+    "universal_init", "unpack_deltas",
 ]

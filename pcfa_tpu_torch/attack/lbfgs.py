@@ -82,13 +82,13 @@ def lbfgs_init(x0: torch.Tensor, history_size: int = 100,
 
 
 def _hist_products(buf: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """buf (B, m, n) @ rhs (B, n, k) → (B, m, k) in float32, with float32
-    accumulation: per chunk of columns, one copy to float32 laid out as
-    (B, blocks, m, _SPLIT), a batched product per block, and a sum over the
-    blocks."""
+    """buf (B, m, n) @ rhs (B, n, k) → (B, m, k) in float32 (float64 for a
+    float64 history), accumulated in that dtype: per chunk of columns, one
+    copy to it laid out as (B, blocks, m, _SPLIT), a batched product per
+    block, and a sum over the blocks."""
     B, m, n = buf.shape
     k = rhs.shape[-1]
-    f32 = torch.float32
+    f32 = torch.promote_types(buf.dtype, torch.float32)
     out = torch.zeros((B, m, k), dtype=f32, device=buf.device)
     for i in range(0, n, _CHUNK):
         end = min(i + _CHUNK, n)
@@ -105,11 +105,13 @@ def _hist_products(buf: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def _hist_combine(coef: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
-    """Σᵢ coef[:, i]·buf[:, i] → (B, n) float32; coef (B, m) float32."""
+    """Σᵢ coef[:, i]·buf[:, i] → (B, n) in coef's dtype (float32, or
+    float64 in a float64 problem), with the buffer cast to it chunk by
+    chunk."""
     c = coef[:, None, :]
-    if buf.dtype == torch.float32:
+    if buf.dtype == coef.dtype:
         return torch.bmm(c, buf)[:, 0]
-    return torch.cat([torch.bmm(c, buf[:, :, i:i + _CHUNK].to(torch.float32))
+    return torch.cat([torch.bmm(c, buf[:, :, i:i + _CHUNK].to(coef.dtype))
                       for i in range(0, buf.shape[-1], _CHUNK)], dim=2)[:, 0]
 
 

@@ -126,8 +126,7 @@ def _make_problem(flow_fn, image1, image2, target, cfg: PCFAConfig):
 
         def network_inputs(x):
             d = x.reshape(image1.shape)
-            return (torch.clamp(image1 + d, 0.0, 1.0),
-                    torch.clamp(image2 + d, 0.0, 1.0))
+            return bc.clip01(image1 + d), bc.clip01(image2 + d)
 
         def deltas(x):
             return bc.extract_deltas_joint(x.reshape(image1.shape),

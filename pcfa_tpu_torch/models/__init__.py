@@ -1,9 +1,10 @@
-"""Flow networks as `nn.Module`s plus the model registry. RAFT, GMA,
-PWCNet, RAFT-small and SpyNet are ported so far."""
+"""Flow networks as `nn.Module`s plus the model registry: RAFT, GMA,
+PWCNet, RAFT-small, SpyNet and FlowNet2."""
 
 from __future__ import annotations
 
 from pcfa_tpu_torch.models import convert
+from pcfa_tpu_torch.models.flownet2 import FlowNet2
 from pcfa_tpu_torch.models.gma import GMA
 from pcfa_tpu_torch.models.pwcnet import PWCDCNet
 from pcfa_tpu_torch.models.raft import RAFT
@@ -56,6 +57,10 @@ register(ModelSpec(name="SpyNet", pad_divisor=64, make=SpyNet,
                    read=_read_spynet, defaults={"nlevels": 6}))
 
 
+register(ModelSpec(name="FlowNet2", pad_divisor=64, make=FlowNet2,
+                   convert=convert.flownet2_state_from_torch))
+
+
 def make_model(name: str, **overrides):
     """Construct the module for `name` (weights uninitialized).
 
@@ -66,5 +71,5 @@ def make_model(name: str, **overrides):
     return spec.make(**kwargs), spec
 
 
-__all__ = ["ModelSpec", "get_spec", "make_model", "register", "GMA",
-           "PWCDCNet", "RAFT", "RAFTSmall", "SpyNet"]
+__all__ = ["ModelSpec", "get_spec", "make_model", "register", "FlowNet2",
+           "GMA", "PWCDCNet", "RAFT", "RAFTSmall", "SpyNet"]

@@ -1,5 +1,6 @@
 """Weights for this package's `state_dict`s: bridges from the JAX
-package's parameter trees (RAFT, GMA, PWCNet, RAFT-small, SpyNet), and the
+package's parameter trees (RAFT, GMA, PWCNet, RAFT-small, SpyNet,
+FlowNet2), and the
 readers of the reference torch checkpoints (one file, or SpyNet's
 directory of per-layer files).
 
@@ -151,6 +152,26 @@ def raft_small_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def flownet2_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """`pcfa_tpu` FlowNet2 params {net: {layer: …}} → `state_dict`. The
+    Sequentials of the reference (`conv`, `i_conv`, `deconv`) hold their
+    layer at `0`; `deconv*` and `upsampled_flow*` are transposed convs
+    (FlowNetS's upsamplers have no bias)."""
+    out: dict = {}
+    for net, layers in tree.items():
+        for layer, leaf in layers.items():
+            key = f"{net}.{layer}"
+            if "0" in leaf:
+                leaf, key = leaf["0"], f"{key}.0"
+            if layer.startswith(("deconv", "upsampled_flow")):
+                out[f"{key}.weight"] = conv_transpose_weight(leaf["kernel"])
+                if "bias" in leaf:
+                    out[f"{key}.bias"] = np.asarray(leaf["bias"])
+            else:
+                _conv(out, key, leaf)
+    return _tensors(out)
+
+
 def _spynet_key(level: int, conv: int) -> str:
     """Conv `conv` (0–4) of level `level`'s block: the reference's
     Sequential holds a ReLU between two convs."""
@@ -245,3 +266,10 @@ def pwcnet_state_from_torch(sd: Mapping[str, torch.Tensor],
     """PWCNet: the reference builds a `deconv2` that its forward never
     uses; it is left out."""
     return state_from_torch(sd, drop=("deconv2.",))
+
+
+def flownet2_state_from_torch(sd: Mapping[str, torch.Tensor],
+                              module=None) -> dict[str, torch.Tensor]:
+    """FlowNet2 (batchNorm=False): no BatchNorm, and the keys already
+    follow the reference; `load_state_dict` checks them strictly."""
+    return dict(sd)

@@ -4,7 +4,8 @@ grids (B, Hg, Wg, 2) with (x, y) in the last axis.
 
 `grid_sample` is the JAX package's packed-corner sampler: one row gather
 of each sample's 2×2 window, and a backward (d img, d ix, d iy) that is one
-call of `ops/segsum.warp_bwd` (a CUDA kernel on the card)."""
+call of `ops/segsum.warp_bwd` (a CUDA kernel on the card). `resample2d`,
+FlowNet2's warp, is the same sampler in border mode."""
 
 from __future__ import annotations
 
@@ -156,6 +157,25 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
     elif padding_mode != "zeros":
         raise ValueError(f"unsupported padding_mode: {padding_mode}")
     return _PackedBilinear.apply(img, ix, iy, padding_mode == "zeros")
+
+
+def resample2d(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """FlowNet2's warp (`pcfa_tpu/ops/warp.py:resample2d`): out(x, y) =
+    bilinear(img at (x + u, y + v)), each corner's index clamped to the
+    image with the weights of the unclamped fractions (the packed sampler
+    in border mode; not `grid_sample`'s border mode, which clamps the
+    coordinate). img (B, H, W, C), flow (B, H, W, 2) → (B, H, W, C) in
+    the promoted dtype, at least float32. The pixel grid is float32
+    (float64 for float64 inputs); the JAX package builds it in the image's
+    dtype, which under bf16 rounds x > 256 (ROADMAP.md §3)."""
+    B, H, W, _ = img.shape
+    dt = torch.promote_types(torch.promote_types(img.dtype, flow.dtype),
+                             torch.float32)
+    xs = torch.arange(W, dtype=dt, device=img.device)
+    ys = torch.arange(H, dtype=dt, device=img.device)
+    gx = xs[None, None, :] + flow[..., 0].to(dt)
+    gy = ys[None, :, None] + flow[..., 1].to(dt)
+    return _PackedBilinear.apply(img, gx, gy, False)
 
 
 def interpolate_bilinear(img: torch.Tensor, out_hw: tuple[int, int],

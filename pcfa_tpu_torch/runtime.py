@@ -39,6 +39,7 @@ WEIGHT_PATHS = {
     "GMA": "models/_pretrained_weights/gma-sintel.pth",
     "PWCNet": "models/_pretrained_weights/pwc_net_chairs.pth.tar",
     "SpyNet": "models/_pretrained_weights/spynet_weights",
+    "FlowNet2": "models/_pretrained_weights/FlowNet2_checkpoint.pth.tar",
 }
 
 # stddev of a unit-variance normal truncated to ±2 (flax lecun_normal)

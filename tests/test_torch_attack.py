@@ -91,6 +91,91 @@ def test_boxconstraint_matches_jax(rng, box):
             jnp.minimum(j[0], j[1]))[0]), atol=1e-6)
 
 
+def _frames(rng, shape):
+    """float64 frames as real ones are, uint8 / 255, with exact 0s and 1s
+    (a saturated patch of each)."""
+    x = np.round(rng.random(shape) * 255.0) / 255.0
+    x[..., :2, :3, :] = 0.0
+    x[..., 2:4, 3:5, :] = 1.0
+    return x
+
+
+def test_clip_derivative_on_a_bound_matches_jnp_clip(rng):
+    """The box clips' gradients where their argument lies exactly on 0 or
+    1: ½ there, as `jnp.clip` gives (max then min; `torch.clamp` would
+    give 1), in `perturbed_images`, `extract_deltas` and both clips of
+    `extract_deltas_joint`, against JAX in float64."""
+    i1, i2 = _frames(rng, (6, 7, 3)), _frames(rng, (6, 7, 3))
+    w1, w2 = rng.standard_normal((2, 6, 7, 3))
+    i_max, i_min = np.maximum(i1, i2), np.minimum(i1, i2)
+    cases = {
+        "perturbed_images": (
+            lambda x: bc.perturbed_images(x, x, "clipping"),
+            lambda x: jbc.perturbed_images(x, x, "clipping"), i1),
+        "extract_deltas": (
+            lambda x: bc.extract_deltas(x, x, torch.from_numpy(i1),
+                                        torch.from_numpy(i2), "clipping"),
+            lambda x: jbc.extract_deltas(x, x, i1, i2, "clipping"), i2),
+        "extract_deltas_joint": (
+            lambda x: bc.extract_deltas_joint(x, torch.from_numpy(i_max),
+                                              torch.from_numpy(i_min)),
+            lambda x: jbc.extract_deltas_joint(x, i_max, i_min),
+            np.zeros_like(i1)),
+    }
+    for name, (port, ref, x) in cases.items():
+        t = torch.from_numpy(x).requires_grad_(True)
+        a, b = port(t)
+        (a * torch.from_numpy(w1) + b * torch.from_numpy(w2)).sum().backward()
+        with jax.enable_x64(True):
+            want = np.asarray(jax.grad(lambda v: jnp.sum(
+                ref(v)[0] * w1 + ref(v)[1] * w2))(jnp.asarray(x)))
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-12,
+                                   atol=1e-12, err_msg=name)
+    # the bound is met, and there the derivative is ½
+    t = torch.tensor([0.0, 0.3, 1.0], dtype=torch.float64, requires_grad=True)
+    bc.clip01(t).sum().backward()
+    assert t.grad.tolist() == [0.5, 1.0, 0.5]
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_first_pcfa_closure_gradient_matches_jax_on_saturated_frames(
+        rng, joint):
+    """The first closure (at δ = 0, so at the images) on frames with exact
+    0 and 1 pixels: loss and gradient of the port's `_make_problem`
+    against the JAX package's, float64, 1e-12, disjoint clipping and
+    joint. The net is a smooth float64 map written in both packages."""
+    i1, i2 = _frames(rng, (1, 8, 10, 3)), _frames(rng, (1, 8, 10, 3))
+    mix = rng.standard_normal((6, 2))
+
+    def tflow(a, b):
+        return torch.tanh(torch.cat([a, b], -1) @ torch.from_numpy(mix)
+                          + 0.3)
+
+    def jflow(a, b):
+        return jnp.tanh(jnp.concatenate([a, b], -1) @ mix + 0.3)
+
+    kw = dict(steps=1, max_iter=1, joint_perturbation=joint)
+    x0, _, _, vg = pcfa._make_problem(
+        tflow, torch.from_numpy(i1), torch.from_numpy(i2),
+        torch.zeros((1, 8, 10, 2), dtype=torch.float64),
+        pcfa.PCFAConfig(**kw))
+    loss, grad = vg(x0)
+    with jax.enable_x64(True):
+        jx0, _, _, jvg = jpcfa._make_problem(
+            jflow, jnp.asarray(i1), jnp.asarray(i2),
+            jnp.zeros((1, 8, 10, 2)), jpcfa.PCFAConfig(**kw))
+        jloss, jgrad = jvg(jx0)
+        jloss, jgrad = float(jloss), np.asarray(jgrad)
+    np.testing.assert_allclose(float(loss[0]), jloss, rtol=1e-12)
+    np.testing.assert_allclose(grad[0].numpy(), jgrad, rtol=1e-12,
+                               atol=1e-12)
+    saturated = np.concatenate([i1.ravel(), i2.ravel()])
+    if joint:
+        saturated = i1.ravel()
+    edge = (saturated == 0.0) | (saturated == 1.0)
+    assert edge.any() and np.abs(jgrad[edge]).max() > 1e-3
+
+
 def test_targets_match_jax(rng):
     flow = rng.standard_normal((4, 5, 2)).astype(np.float32)
     for name in ("zero", "neg_flow"):

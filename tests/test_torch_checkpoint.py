@@ -4,8 +4,9 @@ checkpoint=...)` against `pcfa_tpu.runtime.load_model` on the same file.
 The repository holds no pretrained weights, so each test writes a file in
 the layout the reference ships, with `torch.save`, from a random state of
 the port's network: RAFT, GMA and RAFT-small as a DataParallel state
-(every key prefixed `module.`), PWCNet wrapped as `{'state_dict': …}`
-with the unused `deconv2` the reference builds. Every BatchNorm is expanded to weight,
+(every key prefixed `module.`), PWCNet and FlowNet2 wrapped as
+`{'state_dict': …}`, PWCNet's with the unused `deconv2` the reference
+builds. Every BatchNorm is expanded to weight,
 bias, running mean, running variance (positive) and `num_batches_tracked`;
 GMA's file holds the relative-position tables of every shipped file. The
 flow head's conv2 is damped ×0.01 and GMA's `gamma` set to 0.5, as the
@@ -44,6 +45,7 @@ NETS = {
     "GMA": ({"iters": 2}, 128, convert.gma_params_from_jax),
     "PWCNet": ({}, 64, convert.pwcnet_params_from_jax),
     "RAFT-small": ({"iters": 2}, 128, convert.raft_small_params_from_jax),
+    "FlowNet2": ({}, 64, convert.flownet2_params_from_jax),
 }
 
 
@@ -79,7 +81,7 @@ def _shipped_state(name, seed=0) -> dict[str, torch.Tensor]:
 
 
 def _save_shipped(name, path, sd):
-    if name == "PWCNet":
+    if name in ("PWCNet", "FlowNet2"):
         torch.save({"state_dict": sd}, path)
     else:
         torch.save({f"module.{k}": v for k, v in sd.items()}, path)
@@ -135,7 +137,8 @@ def test_load_model_default_paths(tmp_path, monkeypatch):
     it is loaded. An explicit path wins, and an explicit missing path
     raises too. RAFT-small has no default path and SpyNet's directory is
     absent: FileNotFoundError, and each loads with init_random=True.
-    FlowNet2, not ported yet, raises a KeyError naming the ported ones."""
+    A name that is not registered raises a KeyError naming the ported
+    ones."""
     monkeypatch.chdir(tmp_path)
     for name in NETS:
         with pytest.raises(FileNotFoundError, match="init_random=True"):
@@ -166,4 +169,4 @@ def test_load_model_default_paths(tmp_path, monkeypatch):
         assert runtime.load_model(name, init_random=True, device="cpu",
                                   **kw).name == name
     with pytest.raises(KeyError, match="SpyNet"):
-        runtime.load_model("FlowNet2", device="cpu")
+        runtime.load_model("FlowNetX", device="cpu")

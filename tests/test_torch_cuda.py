@@ -350,6 +350,22 @@ def test_gma_card_matches_cpu(cuda):
     (2, 64, 12, 40, 32, 7, 1, None),
     (2, 32, 192, 640, 64, 7, 1, "relu"),
     (2, 16, 384, 1280, 2, 7, 1, None),
+    # FlowNet2's at 384×1280 (B = 1): FlowNetC's and FlowNetS's conv2 (k5
+    # stride 2), FlowNetS's conv1 (C_in 12), FlowNetSD's conv0 (6) and
+    # Fusion's conv0 (11) with the leaky epilogue; Fusion's inter_conv1
+    # (162 -> 32) and inter_conv0 (82 -> 16), a flow prediction (128 ->
+    # 2); the combined deconv weights (2 -> 8, 128 -> 128 leaky, 162 ->
+    # 64 leaky), as 3×3 stride-1 convs
+    (1, 64, 192, 640, 128, 5, 2, "leaky"),
+    (1, 12, 384, 1280, 64, 7, 2, "leaky"),
+    (1, 6, 384, 1280, 64, 3, 1, "leaky"),
+    (1, 11, 384, 1280, 64, 3, 1, "leaky"),
+    (1, 162, 192, 640, 32, 3, 1, None),
+    (1, 82, 384, 1280, 16, 3, 1, None),
+    (1, 128, 96, 320, 2, 3, 1, None),
+    (1, 2, 48, 160, 8, 3, 1, None),
+    (1, 128, 96, 320, 128, 3, 1, "leaky"),
+    (1, 162, 192, 640, 64, 3, 1, "leaky"),
 ])
 def test_small_conv_kernel_matches_plain(rng, cuda, dtype, tol, case):
     """Forward (bias, act) and dx (with the act derivative fused, from the
@@ -789,3 +805,209 @@ def test_small_nets_card_match_cpu(cuda, name):
         else:
             assert float(((x - y).abs() <= 1e-3 + 1e-3 * y.abs()).double()
                          .mean()) >= 0.995
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", [
+    # (C_in, C_out, H, W, bias, act): a flow upsampler (2 -> 2, the
+    # combined 2 -> 8) with and without bias; Fusion's deconv1 and deconv0
+    (2, 2, 48, 160, True, None),
+    (2, 2, 6, 20, False, None),
+    (128, 32, 96, 320, True, "leaky"),
+    (162, 16, 192, 640, True, "leaky"),
+])
+def test_flownet2_deconv_on_card(rng, cuda, dtype, tol, case):
+    """FlowNet2's transposed convs as one 3×3 small-conv launch with the
+    combined weight and `pixel_shuffle`: the output against
+    `F.conv_transpose2d` (+ leaky) in float32 on the same inputs, and the
+    input gradient (one dx launch) against the plain one."""
+    import torch.nn.functional as F
+
+    from pcfa_tpu_torch.models.flownet2 import Deconv
+
+    c_in, c_out, H, W, bias, act = case
+    m = Deconv(c_in, c_out, bias=bias, act=act)
+    with torch.no_grad():
+        m.weight.copy_(_t(rng.standard_normal(m.weight.shape)
+                          / np.sqrt(16 * c_in)))
+        if bias:
+            m.bias.copy_(_t(rng.standard_normal(c_out)))
+    m = m.requires_grad_(False).to(cuda, dtype)
+    x = _t(rng.standard_normal((1, c_in, H, W))).to(cuda, dtype)
+    g = _t(rng.standard_normal((1, c_out, 2 * H, 2 * W))).to(cuda, dtype)
+    f, d = sc.small_conv_fwd.launches, sc.small_conv_dx.launches
+    xg = x.detach().requires_grad_()
+    out = m(xg)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (sc.small_conv_fwd.launches, sc.small_conv_dx.launches) == (
+        f + 1, d + 1)
+    xf = x.float().requires_grad_()
+    ref = F.conv_transpose2d(xf, m.weight.float(), None if m.bias is None
+                             else m.bias.float(), 2, 1)
+    if act == "leaky":
+        ref = F.leaky_relu(ref, 0.1)
+    ref.backward(g.float())
+    assert out.dtype == dtype and out.shape == ref.shape
+    _close(out.detach(), ref.detach(), tol)
+    _close(xg.grad, xf.grad, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resample2d_on_card(rng, cuda, dtype):
+    """FlowNet2's warp (3 channels, per-corner border clamp) at 384×1280,
+    B = 1, with a flow large enough that many samples leave the image:
+    one backward kernel launch, and the card's output, d img and d flow
+    against the CPU's (the plain backward): output and d flow 1e-4
+    (float32 sums), d img 1e-4, or one bf16 rounding (1e-2)."""
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.ops.warp import resample2d
+
+    img = _t(rng.standard_normal((1, 384, 1280, 3))).to(dtype)
+    flow = _t(rng.standard_normal((1, 384, 1280, 2)) * 40.0)
+    g = _t(rng.standard_normal((1, 384, 1280, 3)))
+    res = []
+    for dev in ("cpu", cuda):
+        a = img.to(dev).detach().requires_grad_()
+        f = flow.to(dev).detach().requires_grad_()
+        before = sg.warp_bwd_cuda.launches
+        out = resample2d(a, f)
+        (out * g.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        assert sg.warp_bwd_cuda.launches == before + (dev != "cpu")
+        assert out.dtype == torch.float32
+        res.append((out.detach().cpu(), a.grad.cpu(), f.grad.cpu()))
+    (o_c, da_c, df_c), (o_g, da_g, df_g) = res
+    assert da_g.dtype == dtype
+    _close(o_g, o_c, 1e-4)
+    _close(da_g, da_c, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+    _close(df_g, df_c, 1e-4)
+
+
+def _card_cpu_f64(module, inputs, g, cuda, jitter=3):
+    """flow and input gradients of Σ flow·g (as float64 CPU tensors): CPU
+    float32, card float32, CPU float64, and `jitter` more CPU float32 runs
+    at inputs scaled by 1 + 2e-7·N(0, 1) (about one float32 ulp)."""
+    import copy
+
+    gen = torch.Generator().manual_seed(100)
+    runs = [("cpu", module, torch.float32, inputs),
+            ("cuda", copy.deepcopy(module).to(cuda), torch.float32, inputs),
+            ("f64", copy.deepcopy(module).double(), torch.float64, inputs)]
+    runs += [("cpu", module, torch.float32, [
+        t * (1 + 2e-7 * torch.randn(t.shape, generator=gen))
+        for t in inputs]) for _ in range(jitter)]
+    res = []
+    for key, model, dt, ins in runs:
+        dev = cuda if key == "cuda" else "cpu"
+        a, b = (t.to(dev, dt).detach().requires_grad_() for t in ins)
+        up = model(a, b)
+        (up * g.to(dev, dt)).sum().backward()
+        res.append([t.detach().cpu().double() for t in (up, a.grad, b.grad)])
+    return res[0], res[1], res[2], res[3:]
+
+
+@pytest.mark.cuda
+def test_flownet2_card_matches_cpu(cuda):
+    """A random FlowNet2 (seed 0), 128×128, one pair, float32: the card
+    (small conv, patch correlation, border warps) against the CPU, the
+    flow at rtol/atol 1e-3, and the input gradients of Σ flow·g against
+    the CPU's float64 ones. A random FlowNet2's float32 input gradients
+    lie anywhere from 2e-4 to 8e-3 (rel L2) from its float64 ones on the
+    CPU alone as its inputs move by one float32 ulp (the warps' floors and
+    the leaky kinks amplify rounding), so the card's error is held to
+    twice the largest of four CPU float32 runs' (these inputs and three
+    jittered by ~1 ulp), as `chip_smoke.check_against_f64` holds it."""
+    from pcfa_tpu_torch.ops import local_corr as lc
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.runtime import load_model
+
+    module = load_model("FlowNet2", init_random=True, seed=0,
+                        device="cpu").module
+    gen = torch.Generator().manual_seed(0)
+    inputs = [torch.rand((1, 128, 128, 3), generator=gen) for _ in range(2)]
+    g = torch.randn((1, 128, 128, 2), generator=gen)
+    counters = (sc.small_conv_fwd, sc.small_conv_dx, lc.local_corr_fwd,
+                lc.local_corr_bwd, sg.warp_bwd_cuda)
+    launched = [c.launches for c in counters]
+    (up_c, *gc), (up_g, *gg), (_, *gt), jittered = _card_cpu_f64(
+        module, inputs, g, cuda)
+    assert [c.launches - n for c, n in zip(counters, launched)] == [
+        41, 41, 1, 1, 4]
+    assert torch.allclose(up_g, up_c, rtol=1e-3, atol=1e-3)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    for i, (x, t) in enumerate(zip(gg, gt)):
+        band = max(rel(r[1 + i], t) for r in ([up_c, *gc], *jittered))
+        assert rel(x, t) <= 2 * band, (rel(x, t), band)
+
+
+@pytest.mark.cuda
+def test_fgsm_and_universal_on_card(cuda):
+    """I-FGSM (2 steps) and the universal attack (2 batches × 1 step ×
+    max_iter 1, the state carried) on a random SpyNet at 128×128 with 2
+    pairs, on the card and on the CPU: both launch the small conv and the
+    warp's backward on the card, and the history grows across the
+    batches. I-FGSM's metrics at every step and the universal attack's
+    after its first batch agree within 1e-3 relative (card against CPU
+    on an H100 host: 1.6e-4 at most). Later L-BFGS iterations are not
+    compared: there a curvature pair whose s·y lies near the push
+    threshold is kept on one device and dropped on the other, and the
+    CPU's float32 against its float64 then differ by a quarter."""
+    from pcfa_tpu_torch.attack import fgsm, universal
+    from pcfa_tpu_torch.ops import segsum as sg
+    from pcfa_tpu_torch.runtime import load_model
+
+    module = load_model("SpyNet", init_random=True, seed=0,
+                        device="cpu").module
+    gen = torch.Generator().manual_seed(1)
+    imgs = [torch.rand((2, 128, 128, 3), generator=gen) for _ in range(4)]
+    tgt = torch.zeros((2, 128, 128, 2))
+    fcfg = fgsm.FGSMConfig(steps=2, epsilon=0.001)
+    ucfg = universal.UniversalConfig(steps=1, max_iter=1, history_size=5,
+                                     lbfgs_direction="compact")
+    res = {}
+    counters = (sc.small_conv_fwd, sc.small_conv_dx, sg.warp_bwd_cuda)
+    for dev in ("cpu", cuda):
+        net = module.to(dev)
+        launched = [c.launches for c in counters]
+        f = fgsm.fgsm_attack(net, imgs[0], imgs[1], tgt, fcfg, device=dev)
+        state = universal.universal_init((128, 128, 3), ucfg, device=dev)
+        ums, counts = [], []
+        for i in (0, 2):
+            state, m, _, _ = universal.universal_batch_attack(
+                net, imgs[i], imgs[i + 1], tgt, state, ucfg)
+            ums.append(m)
+            counts.append(int(state.count[0]))
+        if dev != "cpu":
+            assert all(c.launches > n for c, n in zip(counters, launched))
+        assert counts[1] > counts[0]
+        for m in (f.metrics, *ums):
+            assert all(torch.isfinite(v).all() for v in m)
+        res[str(dev)] = (f.metrics, ums[0])
+    errs = {}
+    for attack, got, ref in zip(("fgsm", "universal"), res[str(cuda)],
+                                res["cpu"]):
+        for name, a, b in zip(got._fields, got, ref):
+            a, b = a.cpu().double(), b.double()
+            errs[f"{attack} {name}"] = float(((a - b).abs() / b.abs()).max())
+    assert max(errs.values()) <= 1e-3, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clip01_on_card(cuda, dtype):
+    """The box clip on CUDA tensors, its bounds given as CPU scalars:
+    values in the tensor's dtype on the card, derivative ½ exactly on 0
+    and on 1, 1 inside and 0 outside."""
+    from pcfa_tpu_torch.attack.boxconstraint import clip01
+
+    x = torch.tensor([-0.5, 0.0, 0.25, 1.0, 1.5], device=cuda,
+                     dtype=dtype).requires_grad_()
+    y = clip01(x)
+    y.sum().backward()
+    assert y.device == x.device and y.dtype == dtype
+    assert y.tolist() == [0.0, 0.0, 0.25, 1.0, 1.0]
+    assert x.grad.tolist() == [0.0, 0.5, 1.0, 0.5, 0.0]

@@ -189,7 +189,7 @@ def test_model_registry():
     pwc = get_spec("PWCNet")
     assert (pwc.pad_divisor, pwc.iters) == (64, None)
     with pytest.raises(KeyError, match="PWCNet"):
-        get_spec("FlowNet2")
+        get_spec("FlowNetX")
 
 
 def test_runtime_flow_fn_on_cpu(monkeypatch):
