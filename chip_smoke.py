@@ -93,6 +93,7 @@ so do the main paths, one at a time: `phase_main_path(net, pairs)` inside
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1733,6 +1734,251 @@ def phase_other_attacks(pairs: int = PAIRS) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- 10 ---
+
+# phase 10's CLI runs: (net whose kernel rows apply, kernels it must launch)
+CLI_RUNS = {
+    "cli attack_pcfa RAFT": ("RAFT", PATH_KERNELS["RAFT"]),
+    "cli attack_pcfa SpyNet universal": ("SpyNet", PATH_KERNELS["SpyNet"]),
+    "cli evaluate_pcfa RAFT": ("RAFT", ["corr_lookup_fwd",
+                                        "small_conv_fwd"]),
+    "cli attack_fgsm PWCNet": ("PWCNet", PATH_KERNELS["PWCNet"]),
+}
+CLI_STEPS = 20    # the published attack's outer steps
+CLI_STEP_KEYS = ("batch", "steps", "epoch", "aee_predadv-tgt",
+                 "aee_pred-predadv", "l2_delta1", "l2_delta2", "l2_delta-avg",
+                 "aee_pred-tgt_min", "l2_delta-avg_min",
+                 "aee_pred-predadv_min")
+
+
+def _cli_run_folder(out: str) -> str:
+    import glob
+
+    runs = glob.glob(os.path.join(out, "*", "*"))
+    if len(runs) != 1:
+        raise AssertionError(f"expected one run folder under {out}: {runs}")
+    return runs[0]
+
+
+def _cli_metrics(run: str) -> list[dict]:
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    bad = [m for m in metrics if not math.isfinite(m["value"])]
+    if not metrics or bad:
+        raise AssertionError(f"{run}: metrics empty or not finite: {bad}")
+    return metrics
+
+
+def _png_size(path: str) -> tuple[int, int]:
+    """(width, height) from a PNG's header; raises if it is not a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return tuple(int.from_bytes(head[i:i + 4], "big") for i in (16, 20))
+
+
+@contextlib.contextmanager
+def spans(*targets):
+    """Replace each `(module, function name)` with a wrapper that times its
+    calls on a `StepTimer` of that name (fenced before the call too, so
+    that work queued earlier is not charged to it); yields {name: timer},
+    and the originals are back when the block ends."""
+    from pcfa_tpu_torch.utils.profiling import StepTimer, fence
+
+    timers, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        timers[name] = StepTimer()
+
+        def timed(*args, _fn=fn, _timer=timers[name], **kw):
+            fence()
+            return _timer.fenced(functools.partial(_fn, *args, **kw))
+
+        setattr(mod, name, timed)
+        saved.append((mod, name, fn))
+    try:
+        yield timers
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_clis() -> dict:
+    """The three CLIs as a user runs them, each `main(argv, device="cuda")`
+    called in this process in its net's main-path environment, on
+    Synthetic frames of KITTI's size (PCFA_SYNTHETIC_SIZE=375x1242,
+    training stage), random weights (the CLIs' fallback: no checkpoint is
+    on the machine), output in a temporary folder:
+    1. RAFT, `attack_pcfa` at the published config: 2 pairs in one call,
+       20 steps × L-BFGS max_iter 10, δ-bound 0.005, zero target,
+       clipping; every per-step metric logged 20 × 2 times and finite, the
+       best δ's norm under the bound (×(1 + 1e-3)), `00000_delta1_best.npy`
+       of shape (1, 3, 376, 1248), the PNGs; wall time, pairs/s, peak,
+       and the time in the model's load, the flow function's set-up, the
+       engine and the artifact writer (`spans`);
+    2. SpyNet, `attack_pcfa --universal_perturbation`, batch 2, 1 epoch,
+       1 step, 4 frames (2 batches): `*_delta1_e0.npy` written;
+    3. RAFT, `evaluate_pcfa` of run 2's δ (SpyNet's ÷64 padding converted
+       to RAFT's ÷8): finite metrics;
+    4. PWCNet, `attack_fgsm`, 2 steps, 1 pair;
+    5. one subprocess, `python3 -m pcfa_tpu_torch.cli.evaluate_pcfa`, on
+       run 2's folder with SpyNet: exit 0 and its metrics file.
+    Each of runs 1–4 must launch the kernels `CLI_RUNS` names (counts set
+    to 0 just before the run, read just after). Returns per run its
+    seconds, launches and peak memory."""
+    import importlib.util
+    import tempfile
+
+    from pcfa_tpu_torch.cli import (attack_fgsm, attack_pcfa, common,
+                                    evaluate_pcfa)
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "cv2", "tqdm", "matplotlib", "mlflow")}
+    log(f"# clis: importable here: {json.dumps(have)}")
+    wrappers = {name: wrapper(name) for name, *_ in KERNELS}
+    data = ["--dataset=Synthetic", "--dataset_stage=training",
+            "--unregistered_artifacts"]
+    res = {}
+
+    def run(label, count, main, argv):
+        net = CLI_RUNS[label][0]
+        os.environ["PCFA_SYNTHETIC_COUNT"] = str(count)
+        with main_path_env(net):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = main([f"--net={net}", *data, *argv], device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items()}
+        missing = [k for k in CLI_RUNS[label][1] if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"{label} never launched {missing}")
+        res[label] = dict(seconds=secs, launches=launches,
+                          peak=torch.cuda.max_memory_allocated())
+        log(f"# {label}: {secs:.3f} s, peak "
+            f"{res[label]['peak'] / 2**30:.2f} GiB, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})} "
+            f"[{card_line()}]")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="pcfa_clis_") as tmp, \
+            restored_env():
+        os.environ["PCFA_SYNTHETIC_SIZE"] = f"{KITTI_HW[0]}x{KITTI_HW[1]}"
+        os.environ["PCFA_NO_MLFLOW"] = "1"
+
+        # 1. RAFT's published attack
+        label = "cli attack_pcfa RAFT"
+        out = os.path.join(tmp, "raft")
+        with spans((common, "load_attack_model"),
+                   (attack_pcfa, "make_flow_fn"),
+                   (attack_pcfa, "pcfa_attack"),
+                   (attack_pcfa, "_save_pair")) as where:
+            run(label, 2, attack_pcfa.main, [
+                "--pairs_per_device=2", f"--steps={CLI_STEPS}",
+                "--boxconstraint=clipping", "--delta_bound=0.005",
+                "--target=zero", f"--output_folder={out}"])
+        folder = _cli_run_folder(out)
+        metrics = _cli_metrics(folder)
+        for key in CLI_STEP_KEYS:
+            steps = [m["step"] for m in metrics if m["key"] == key]
+            if steps != list(range(2 * CLI_STEPS)):
+                raise AssertionError(f"{label}: {key} logged at {steps}")
+        l2_min = [m["value"] for m in metrics
+                  if m["key"] == "l2_delta-avg_min"]
+        last = (CLI_STEPS - 1, 2 * CLI_STEPS - 1)    # each pair's last step
+        l2_min = [l2_min[i] for i in last]
+        if max(l2_min) > 0.005 * (1 + 1e-3):
+            raise AssertionError(f"{label}: best δ norms {l2_min} over the "
+                                 "bound")
+        patches = os.path.join(folder, "patches")
+        padded = tuple(-(-d // 8) * 8 for d in KITTI_HW)    # 376×1248
+        d1 = np.load(os.path.join(patches, "00000_delta1_best.npy"))
+        if d1.shape != (1, 3, *padded) or not np.isfinite(d1).all():
+            raise AssertionError(f"{label}: delta1_best {d1.shape}")
+        for pair in (0, 1):
+            for name in ("image1", "image2", "image1_delta_best",
+                         "image2_delta_best", "delta1_best", "delta2_best",
+                         "flow_pred_best", "flow_pred_init", "flow_target",
+                         "flow_gt"):
+                size = _png_size(os.path.join(patches,
+                                              f"{pair:05d}_{name}.png"))
+                want = padded if "image" in name or "delta" in name \
+                    else KITTI_HW
+                want = (want[1], want[0])
+                if size != want:
+                    raise AssertionError(f"{label}: {name}.png {size}")
+        secs = res[label]["seconds"]
+        aee_min = [m["value"] for m in metrics
+                   if m["key"] == "aee_pred-predadv_min"]
+        log(f"# {label}: published config ({CLI_STEPS} steps × max_iter 10, "
+            f"2 pairs, bf16 network and history) in {secs:.3f} s of wall = "
+            f"{2 / secs:.5f} pairs/s (a run, model load and artifacts "
+            f"included); best δ norms {l2_min}, their aee_pred-predadv "
+            f"{[aee_min[i] for i in last]}; peak "
+            f"{res[label]['peak'] / 2**30:.2f} GiB; seconds in "
+            f"{json.dumps({k: round(t.total, 3) for k, t in where.items()})}"
+            f", the rest {secs - sum(t.total for t in where.values()):.3f} "
+            f"[{card_line()}]")
+        torch.cuda.empty_cache()
+
+        # 2. SpyNet's universal attack
+        label = "cli attack_pcfa SpyNet universal"
+        uni = run(label, 4, attack_pcfa.main, [
+            "--universal_perturbation", "--batch_size=2", "--epochs=1",
+            "--steps=1", f"--output_folder={os.path.join(tmp, 'uni')}"])
+        uni = uni["folder_path"]
+        _cli_metrics(uni)
+        if not os.path.exists(os.path.join(uni, "patches",
+                                           "00001_delta1_e0.npy")):
+            raise AssertionError(f"{label}: no 00001_delta1_e0.npy")
+
+        # 3. RAFT evaluates SpyNet's δ
+        label = "cli evaluate_pcfa RAFT"
+        out = os.path.join(tmp, "eval")
+        ev = run(label, 4, evaluate_pcfa.main, [
+            "--origin_net=SpyNet", "--universal_perturbation",
+            f"--perturbation_sourcefolder={uni}", f"--output_folder={out}"])
+        _cli_metrics(_cli_run_folder(out))
+        if not all(math.isfinite(v) for v in ev[0].values()):
+            raise AssertionError(f"{label}: {ev}")
+        log(f"# {label} of the SpyNet δ: {json.dumps(ev[0])}")
+
+        # 4. PWCNet's I-FGSM
+        label = "cli attack_fgsm PWCNet"
+        out = os.path.join(tmp, "fgsm")
+        avgs = run(label, 1, attack_fgsm.main,
+                   ["--steps=2", f"--output_folder={out}"])
+        _cli_metrics(_cli_run_folder(out))
+        log(f"# {label}: averages {json.dumps(avgs)}")
+
+        # 5. the evaluator as a module, in its own process
+        out = os.path.join(tmp, "sub")
+        os.environ["PCFA_SYNTHETIC_COUNT"] = "4"
+        t = time.perf_counter()
+        with main_path_env("SpyNet"):
+            proc = subprocess.run(
+                [sys.executable, "-m", "pcfa_tpu_torch.cli.evaluate_pcfa",
+                 "--net=SpyNet", *data, "--origin_net=SpyNet",
+                 "--universal_perturbation", "--batch_size=2",
+                 f"--perturbation_sourcefolder={uni}",
+                 f"--output_folder={out}"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"python3 -m pcfa_tpu_torch.cli.evaluate_pcfa exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        sub = _cli_metrics(_cli_run_folder(out))
+        log(f"# python3 -m pcfa_tpu_torch.cli.evaluate_pcfa (SpyNet, run "
+            f"2's δ): exit 0 in {time.perf_counter() - t:.1f} s, "
+            f"{len(sub)} metrics")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1758,6 +2004,9 @@ def main() -> int:
     phase_checkpoint()
     with main_path_env("SpyNet"):
         phase_other_attacks()
+    torch.cuda.empty_cache()
+    for label, n in phase_clis().items():
+        by_path[label] = n["launches"]
 
     kernels = []
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1768,9 +2017,12 @@ def main() -> int:
         # path that launched the kernel most. Every row is printed above.
         paths = {}
         for net, n in by_path.items():
-            if name in PATH_KERNELS[net]:
+            kernels_of, rows_of = (CLI_RUNS[net][1], CLI_RUNS[net][0]) \
+                if net in CLI_RUNS else (PATH_KERNELS[net],
+                                         ROW_PATH.get(net, net))
+            if name in kernels_of:
                 cand = [r for r in rows if r["name"] == name
-                        and r["path"] == ROW_PATH.get(net, net)]
+                        and r["path"] == rows_of]
                 r = max([r for r in cand if r["dtype"] == "bfloat16"]
                         or cand, key=lambda r: r["bound_ms"])
                 paths[net] = dict(launches=n[name], **{k: r[k] for k in keys})

@@ -62,9 +62,11 @@ def two_norm_avg_delta_squared(delta1: torch.Tensor,
 
 def relu_penalty(delta1: torch.Tensor, delta2: torch.Tensor,
                  delta_bound: float = 0.001) -> torch.Tensor:
-    """relu(‖δ‖²_avg − bound²)."""
-    return torch.clamp(
-        two_norm_avg_delta_squared(delta1, delta2) - delta_bound ** 2, min=0.0)
+    """relu(‖δ‖²_avg − bound²) as a maximum with 0, whose derivative
+    where ‖δ‖²_avg equals bound² is ½, as `jnp.maximum`'s
+    (`torch.clamp` gives 1 there)."""
+    excess = two_norm_avg_delta_squared(delta1, delta2) - delta_bound ** 2
+    return torch.maximum(excess, torch.zeros_like(excess))
 
 
 def loss_delta_constraint(pred: torch.Tensor, target: torch.Tensor,

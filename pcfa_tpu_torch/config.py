@@ -1,14 +1,68 @@
-"""Environment knobs shared with `pcfa_tpu/config.py` (same names, same
-defaults): `PCFA_LBFGS_DIRECTION`, `PCFA_LBFGS_DTYPE` (with its refusal
-for PWCNet), `PCFA_COMPUTE_DTYPE`, `PCFA_CORR_HBM_BUDGET_MB` and
-`PCFA_GRU_FUSED`."""
+"""Static configuration shared with `pcfa_tpu/config.py` (same names, same
+defaults): the dataset splits and roots (`PCFA_SINTEL_ROOT`,
+`PCFA_KITTI15_ROOT`, then `pcfa_paths.json` in the working directory),
+and the environment knobs `PCFA_LBFGS_DIRECTION`, `PCFA_LBFGS_DTYPE`
+(with its refusal for PWCNet), `PCFA_COMPUTE_DTYPE`,
+`PCFA_CORR_HBM_BUDGET_MB` and `PCFA_GRU_FUSED`.
+
+`pcfa_tpu`'s `RuntimeConfig` (`PCFA_MATMUL_PRECISION`,
+`PCFA_COMPILE_CACHE`) sets XLA's matmul precision and compile cache: the
+port has no counterpart of either. Its float32 is always float32
+(`_device.resolve_device` switches TF32 off) and it compiles nothing
+per run but the kernels, built once per checkout.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import warnings
+from pathlib import Path
 
 import torch
+
+_PATHS_FILE = "pcfa_paths.json"
+
+# Dataset split names
+SPLITS = {
+    "sintel_train": "training",
+    "sintel_eval": "test",
+    "kitti_train": "training",
+    "kitti_eval": "testing",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class PathsConfig:
+    """Dataset roots. Empty string means 'not configured'."""
+
+    sintel_mpi: str = ""
+    kitti15: str = ""
+
+    @staticmethod
+    def load(cwd: str | None = None) -> "PathsConfig":
+        cfg = {}
+        path = Path(cwd or os.getcwd()) / _PATHS_FILE
+        if path.is_file():
+            try:
+                cfg = json.loads(path.read_text())
+            except (OSError, json.JSONDecodeError):
+                cfg = {}
+        return PathsConfig(
+            sintel_mpi=os.environ.get("PCFA_SINTEL_ROOT",
+                                      cfg.get("sintel_mpi", "")),
+            kitti15=os.environ.get("PCFA_KITTI15_ROOT",
+                                   cfg.get("kitti15", "")),
+        )
+
+
+def splits(name: str) -> str:
+    return SPLITS[name]
+
+
+def paths(name: str) -> str:
+    return getattr(PathsConfig.load(), name)
 
 
 def lbfgs_direction() -> str:

@@ -1,1 +1,2 @@
-"""Host-side utilities: input padding."""
+"""Host-side utilities: input padding, tensors to numpy, experiment
+tracking and artifacts, profiling."""

@@ -137,6 +137,25 @@ def test_clip_derivative_on_a_bound_matches_jnp_clip(rng):
     assert t.grad.tolist() == [0.5, 1.0, 0.5]
 
 
+def test_penalty_derivative_at_the_bound_matches_jnp_maximum():
+    """δ filled with 0.5 and bound 0.5 make ‖δ‖²_avg equal bound² exactly
+    in float64: there the penalty's gradient is ½·∂‖δ‖²_avg, as
+    `jax.grad` of the JAX package's `jnp.maximum(0, …)` gives (a clamp
+    at 0 gave the full value), and the penalty itself is 0."""
+    d1, d2 = np.full((2, 3, 4, 3), 0.5), np.full((2, 3, 4, 3), 0.5)
+    t1, t2 = (torch.from_numpy(d).requires_grad_(True) for d in (d1, d2))
+    pen = losses.relu_penalty(t1, t2, 0.5)
+    pen.backward()
+    with jax.enable_x64(True):
+        want = jax.grad(lambda a, b: jlosses.relu_penalty(a, b, 0.5),
+                        argnums=(0, 1))(jnp.asarray(d1), jnp.asarray(d2))
+    assert float(pen) == 0.0
+    full = 2 * d1 / (d1.size + d2.size)      # ∂‖δ‖²_avg / ∂δ1
+    for got, ref in zip((t1.grad, t2.grad), want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(got.numpy(), 0.5 * full)
+
+
 @pytest.mark.parametrize("joint", [False, True])
 def test_first_pcfa_closure_gradient_matches_jax_on_saturated_frames(
         rng, joint):
