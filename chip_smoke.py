@@ -72,7 +72,21 @@ script then exits non-zero):
    1 step × max_iter 2, the L-BFGS state carried) on full SpyNet at
    384×1280, 2 pairs, in SpyNet's environment: finite metrics, the
    history grown across the batches, the small conv and the warp's
-   backward launched.
+   backward launched;
+10. the CLIs as a user runs them (`phase_clis`);
+11. slice J on two ranks of the one card, gloo (`phase_ranks`): this
+    process first computes float32 references; then two processes
+    (`python3 chip_smoke.py --rank <folder>`, MASTER_ADDR etc. set) each
+    run J.1, RAFT's pair-parallel attack (`pcfa_attack_dp`, one KITTI
+    pair per rank, 2 steps × max_iter 2, bf16) and its float32 first
+    closure against this process's run of the pair; J.2, SpyNet's
+    universal attack over the ranks (2 batches × 1 step × max_iter 2,
+    one pair per rank, bf16; δ bit-identical over the ranks) and its
+    float32 first closure; J.3, one float32 closure of RAFT-12 at
+    752×2488 (materialized) and of GMA-6 at 384×1248 split by rows,
+    against the unsplit closures (flow rtol/atol 1e-4, gradients 1e-3 /
+    1e-6), each rank's peak against the unsplit one. A rank that fails
+    or runs past 600 s fails the phase.
 Every kernel of a path must be launched during that path's run (the
 counts are set to 0 just before it and read just after); each main path
 also prints its kernels' launches in one closure. Before each main
@@ -1979,6 +1993,534 @@ def phase_clis() -> dict:
     return res
 
 
+# ----------------------------------------------------------------- 11 ---
+
+# phase 11's runs, each on two ranks of the one card: (net whose kernel
+# rows apply, kernels each rank must launch)
+RANK_RUNS = {
+    "ranks J.1 RAFT pair-parallel": ("RAFT", PATH_KERNELS["RAFT"]),
+    "ranks J.2 SpyNet universal": ("SpyNet", PATH_KERNELS["SpyNet"]),
+    "ranks J.3 row-sharded RAFT and GMA": ("RAFT", PATH_KERNELS["RAFT"]),
+}
+RANKS = 2
+RANK_TIMEOUT_S = 600
+SP_RAFT_HW = (752, 2488)   # 2× KITTI 750×2484 padded to ÷8: H/8 = 94
+SP_GMA_HW = (384, 1248)
+FIRST_CLOSURE_TOL = 1e-4
+
+
+def rel_err(got, ref) -> float:
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).norm() / ref.norm())
+
+
+def j1_setup(loaded):
+    """RAFT's pairs of phase 11 (2, seed 11, KITTI) padded, a zero target,
+    and the attack's config in the current environment."""
+    from pcfa_tpu_torch import config
+    from pcfa_tpu_torch.attack import pcfa
+    from pcfa_tpu_torch.runtime import make_flow_fn
+
+    padder, flow_fn = make_flow_fn(loaded, KITTI_HW, pad_mode="kitti")
+    rng = np.random.default_rng(11)
+    imgs = [torch.from_numpy(rng.random((RANKS, *KITTI_HW, 3))
+                             .astype(np.float32)).cuda() for _ in range(2)]
+    cfg = pcfa.PCFAConfig(
+        steps=2, max_iter=2, delta_bound=0.005, loss="aee", target="zero",
+        boxconstraint="clipping", history_size=100,
+        lbfgs_direction=config.lbfgs_direction(),
+        lbfgs_history_dtype=config.lbfgs_history_dtype("RAFT"))
+    target = torch.zeros((RANKS, *KITTI_HW, 2), device="cuda")
+    return flow_fn, *padder.pad(*imgs), target, cfg
+
+
+def j2_setup(loaded):
+    """SpyNet's flow function, padder and batches of phase 11 (2 of 2
+    pairs, seed 12, KITTI padded to 384×1280), and a zero target of one
+    pair, in the current environment."""
+    from pcfa_tpu_torch.runtime import make_flow_fn
+
+    padder, flow_fn = make_flow_fn(loaded, KITTI_HW, pad_mode="kitti")
+    rng = np.random.default_rng(12)
+    batches = [padder.pad(*(torch.from_numpy(rng.random(
+        (RANKS, *KITTI_HW, 3)).astype(np.float32)).cuda() for _ in range(2)))
+        for _ in range(2)]
+    return flow_fn, padder, batches, torch.zeros((1, *KITTI_HW, 2),
+                                                 device="cuda")
+
+
+def ucfg(max_iter: int):
+    """Phase 11's universal config, 1 step × `max_iter`, in the current
+    environment."""
+    from pcfa_tpu_torch import config
+    from pcfa_tpu_torch.attack import universal
+    from pcfa_tpu_torch.attack.losses import default_mu
+
+    return universal.UniversalConfig(
+        steps=1, max_iter=max_iter, delta_bound=0.005,
+        mu=default_mu(0.005, "zero"),
+        lbfgs_direction=config.lbfgs_direction(),
+        lbfgs_history_dtype=config.lbfgs_history_dtype("SpyNet"))
+
+
+@contextlib.contextmanager
+def first_closure(captured: list):
+    """Records (value, gradient) of the first closure the universal
+    engine's L-BFGS calls, by calling it once more."""
+    from pcfa_tpu_torch.attack import universal
+
+    orig = universal.lbfgs_iteration
+
+    def spy(value_and_grad, state, pos, **kw):
+        if not captured:
+            captured.append(value_and_grad(state.x))
+        return orig(value_and_grad, state, pos, **kw)
+
+    universal.lbfgs_iteration = spy
+    try:
+        yield captured
+    finally:
+        universal.lbfgs_iteration = orig
+
+
+def sp_inputs(hw, seed):
+    rng = np.random.default_rng(seed)
+    x1, x2 = (torch.from_numpy(rng.random((1, *hw, 3)).astype(np.float32))
+              .cuda() for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((1, *hw, 2))
+                         .astype(np.float32)).cuda()
+    return x1, x2, g
+
+
+def sp_model(net, shards):
+    from pcfa_tpu_torch.runtime import load_model
+
+    extra = dict(corr_impl="materialized") if net == "RAFT" else {}
+    return damped(load_model(net, init_random=True, seed=0,
+                             spatial_shards=shards, **extra),
+                  gamma=0.5 if net == "GMA" else None)
+
+
+def sp_closure(flow_fn, x1, x2, g):
+    """flow_up and the input gradients of Σ flow_up·g (on the CPU); the
+    seconds; the closure's own peak memory (above what was allocated
+    before it: weights and inputs)."""
+    a, b = (x.detach().requires_grad_(True) for x in (x1, x2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    up = flow_fn(a, b)
+    (up * g).sum().backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    return ([v.detach().cpu() for v in (up, a.grad, b.grad)], secs,
+            torch.cuda.max_memory_allocated() - base)
+
+
+@contextlib.contextmanager
+def float32_env():
+    """A float32 network and L-BFGS history, under the caller's
+    environment otherwise."""
+    with restored_env():
+        os.environ.pop("PCFA_COMPUTE_DTYPE", None)
+        os.environ.pop("PCFA_LBFGS_DTYPE", None)
+        yield
+
+
+def rank_references(folder: str) -> tuple[dict, dict]:
+    """What phase 11's ranks are held against, from this one process on
+    the card in float32 ('highest'), saved to `folder`:
+
+    * the first closure of the RAFT attack (value, δ-gradient) of each
+      pair alone, and of the 2 pairs as one batch;
+    * the first closure of the universal SpyNet attack (value, gradient)
+      on each pair alone, and on the 2 pairs as one batch;
+    * the unsplit RAFT (2× KITTI, materialized) and GMA (384×1248)
+      closures with their times and peaks.
+
+    Batch size alone moves a float32 gradient: cuDNN and cuBLAS round a
+    batch of 2 otherwise than a batch of 1, which switches ReLU units of a
+    random RAFT on or off (the 2-pair closure's gradient lay 1.2e-3 and
+    2.1e-3 (rel L2) from the ranks' 1-pair ones, whose values agreed to
+    1.2e-7). So a rank, which runs 1 pair, is held to the pairs alone at
+    `FIRST_CLOSURE_TOL`, and its distance to the batch is printed beside
+    the batch's own to the pairs alone. Returns the closures' peaks and
+    those distances."""
+    from pcfa_tpu_torch.attack import pcfa, universal
+    from pcfa_tpu_torch.runtime import load_model
+
+    def j1_closure(flow_fn, x1, x2, target, cfg):
+        x0, _, _, value_and_grad = pcfa._make_problem(flow_fn, x1, x2,
+                                                      target, cfg)
+        return value_and_grad(x0)
+
+    def j2_closure(flow_fn, images1, images2, target, padder):
+        cfg = ucfg(1)
+        with first_closure([]) as got:
+            universal.universal_batch_attack(
+                flow_fn, images1, images2,
+                target.expand(images1.shape[0], -1, -1, -1),
+                universal.universal_init((*padder.padded_shape, 3), cfg),
+                cfg)
+        return got[0]
+
+    floor = {}
+    with float32_env():
+        loaded = load_model("RAFT", init_random=True, seed=0)
+        flow_fn, x1, x2, target, cfg = j1_setup(loaded)
+        batch = j1_closure(flow_fn, x1, x2, target, cfg)
+        pairs = [j1_closure(flow_fn, x1[p:p + 1], x2[p:p + 1],
+                            target[p:p + 1], cfg) for p in range(RANKS)]
+        ref = dict(batch_loss=batch[0].cpu(), batch_grad=batch[1].cpu(),
+                   pair_loss=torch.cat([v for v, _ in pairs]).cpu(),
+                   pair_grad=torch.cat([g for _, g in pairs]).cpu())
+        floor["J.1"] = [rel_err(ref["pair_grad"][p], ref["batch_grad"][p])
+                        for p in range(RANKS)]
+        torch.save(ref, os.path.join(folder, "j1_ref.pt"))
+
+        loaded = load_model("SpyNet", init_random=True, seed=0)
+        flow_fn, padder, batches, target = j2_setup(loaded)
+        b1, b2 = batches[0]
+        batch = j2_closure(flow_fn, b1, b2, target, padder)
+        pairs = [j2_closure(flow_fn, b1[p:p + 1], b2[p:p + 1], target,
+                            padder) for p in range(RANKS)]
+        # at δ = 0 the penalty and its gradient are 0, and each pair has as
+        # many pixels: the global value and gradient are the pairs' means
+        ref = dict(batch_loss=batch[0].cpu(), batch_grad=batch[1].cpu(),
+                   pair_loss=sum(v for v, _ in pairs).cpu() / RANKS,
+                   pair_grad=sum(g for _, g in pairs).cpu() / RANKS)
+        floor["J.2"] = [rel_err(ref["pair_grad"], ref["batch_grad"])]
+        torch.save(ref, os.path.join(folder, "j2_ref.pt"))
+        del loaded, flow_fn, batches
+        peaks = {}
+        for net, hw, seed in (("RAFT", SP_RAFT_HW, 13),
+                              ("GMA", SP_GMA_HW, 14)):
+            model = sp_model(net, 1)
+            out, secs, peak = sp_closure(lambda a, b: model(a, b)[1],
+                                         *sp_inputs(hw, seed))
+            torch.save(out, os.path.join(folder, f"j3_{net}_ref.pt"))
+            peaks[net] = dict(seconds=secs, peak=peak)
+            del model
+            torch.cuda.empty_cache()
+    return peaks, floor
+
+
+def rank_worker(folder: str) -> None:
+    """One rank of phase 11 (`python3 chip_smoke.py --rank <folder>`, with
+    MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK set): joins
+    the group (`multihost.initialize`), runs J.1, J.2 and J.3 in turn and
+    writes `<folder>/rank<r>.json`; raises on any failed check."""
+    import torch.distributed as dist
+
+    from pcfa_tpu_torch.attack import pcfa, universal
+    from pcfa_tpu_torch.config import RuntimeConfig
+    from pcfa_tpu_torch.parallel import (data_mesh, dp, multihost,
+                                         pcfa_attack_dp, space_mesh,
+                                         spatial_flow_fn,
+                                         universal_batch_attack_dp)
+    from pcfa_tpu_torch.parallel.mesh import all_gather_cat
+    from pcfa_tpu_torch.runtime import load_model
+    from pcfa_tpu_torch._device import resolve_device
+
+    multihost.initialize()
+    resolve_device("cuda")
+    RuntimeConfig("highest").apply()
+    mesh = data_mesh()
+    r = mesh.rank
+    card = card_line()
+    wrappers = {name: wrapper(name) for name, *_ in KERNELS}
+    report = {"rank": r, "backend": mesh.backend, "runs": {}}
+
+    def counted(label, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items()}
+        missing = [k for k in RANK_RUNS[label][1] if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"rank {r}: {label} never launched "
+                                 f"{missing}")
+        report["runs"][label] = dict(
+            seconds=secs, peak=torch.cuda.max_memory_allocated(),
+            launches=launches)
+        return out
+
+    def finite(what, tensors):
+        for t in tensors:
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"rank {r}: {what} not finite")
+
+    def close(what, loss, grad, ref, rows):
+        """Value and gradient errors against the pairs alone (held to
+        FIRST_CLOSURE_TOL) and the gradient's against the batch."""
+        def value_err(key):
+            want = ref[key][rows].double()
+            return float((loss.double().cpu() - want).abs().max()
+                         / want.abs().max())
+
+        e_v, e_g = value_err("pair_loss"), rel_err(grad,
+                                                   ref["pair_grad"][rows])
+        if not (e_v <= FIRST_CLOSURE_TOL and e_g <= FIRST_CLOSURE_TOL):
+            raise AssertionError(f"rank {r}: {what}: value rel err {e_v}, "
+                                 f"gradient rel L2 {e_g}")
+        return e_v, e_g, value_err("batch_loss"), rel_err(
+            grad, ref["batch_grad"][rows])
+
+    def close_line(errs):
+        return (f"float32 first closure vs one process, the pairs alone: "
+                f"value rel err {errs[0]:.3g}, gradient rel L2 "
+                f"{errs[1]:.3g}; vs the 2 pairs as one batch: "
+                f"{errs[2]:.3g}, {errs[3]:.3g}")
+
+    # J.1: pair-parallel PCFA on RAFT, the main path's bf16 environment
+    label = "ranks J.1 RAFT pair-parallel"
+    with main_path_env("RAFT"):
+        loaded = load_model("RAFT", init_random=True, seed=0)
+        flow_fn, x1, x2, target, cfg = j1_setup(loaded)
+        local = []
+        attack = dp.pcfa_attack
+
+        def spy(*args, **kw):
+            local.append(attack(*args, **kw))
+            return local[-1]
+
+        dp.pcfa_attack = spy
+        try:
+            res = counted(label, lambda: pcfa_attack_dp(
+                flow_fn, x1, x2, target, cfg, mesh))
+        finally:
+            dp.pcfa_attack = attack
+    finite(label, pcfa_leaves(res))
+    if res.delta1.shape != (RANKS, *x1.shape[1:]) or \
+            res.flow_pred.shape != (RANKS, *KITTI_HW, 2) or \
+            res.metrics.loss.shape != (RANKS, cfg.steps):
+        raise AssertionError(f"rank {r}: {label}: gathered shapes "
+                             f"{tuple(res.delta1.shape)}, "
+                             f"{tuple(res.flow_pred.shape)}")
+    for mine, gathered in zip(pcfa_leaves(local[0]), pcfa_leaves(res)):
+        if not torch.equal(mine, gathered[r:r + 1]):
+            raise AssertionError(f"rank {r}: {label}: its block of the "
+                                 "gathered result differs from its own")
+    with float32_env():
+        flow32, *_ = j1_setup(loaded)
+        x0, _, _, value_and_grad = pcfa._make_problem(
+            flow32, x1[r:r + 1], x2[r:r + 1], target[r:r + 1], cfg)
+        loss, grad = value_and_grad(x0)
+    errs = close(label, loss, grad,
+                 torch.load(os.path.join(folder, "j1_ref.pt")),
+                 slice(r, r + 1))
+    report["runs"][label]["first_closure_errs"] = errs
+    run = report["runs"][label]
+    log(f"# rank {r}/{RANKS} ({mesh.backend}): {label}, 1 pair per rank "
+        f"of {RANKS} at {tuple(x1.shape[1:3])}, {cfg.steps} steps x "
+        f"max_iter {cfg.max_iter}, bf16: {run['seconds']:.3f} s, peak "
+        f"{run['peak'] / 2**30:.2f} GiB, aee_adv_tgt "
+        f"{res.metrics.aee_adv_tgt[:, -1].tolist()}; {close_line(errs)}; "
+        f"launches {json.dumps(nonzero(run['launches']))} [{card}]")
+    del loaded, flow_fn, flow32, res, local
+    torch.cuda.empty_cache()
+
+    # J.2: the universal attack on SpyNet, one pair per rank
+    label = "ranks J.2 SpyNet universal"
+    with main_path_env("SpyNet"):
+        loaded = load_model("SpyNet", init_random=True, seed=0)
+        flow_fn, padder, batches, target = j2_setup(loaded)
+        cfg = ucfg(2)
+        state = universal.universal_init((*padder.padded_shape, 3), cfg)
+        counts, metrics = [], []
+
+        def run_batches():
+            nonlocal state
+            for b1, b2 in batches:
+                state, m, _, pred = universal_batch_attack_dp(
+                    flow_fn, b1[r:r + 1], b2[r:r + 1], target, state, cfg,
+                    mesh)
+                counts.append(int(state.count[0]))
+                metrics.append(m)
+            return pred
+
+        pred = counted(label, run_batches)
+    finite(label, [pred, state.x, *(v for m in metrics for v in m)])
+    if not counts[1] > counts[0] >= 1:
+        raise AssertionError(f"rank {r}: {label}: history counts {counts}")
+    xs = all_gather_cat(state.x, mesh)
+    if not all(torch.equal(xs[i], xs[0]) for i in range(RANKS)):
+        raise AssertionError(f"rank {r}: {label}: the ranks' δ differ")
+    with float32_env():
+        flow32, *_ = j2_setup(loaded)
+        cfg32 = ucfg(1)
+        with first_closure([]) as got:
+            universal_batch_attack_dp(
+                flow32, batches[0][0][r:r + 1], batches[0][1][r:r + 1],
+                target, universal.universal_init((*padder.padded_shape, 3),
+                                                 cfg32), cfg32, mesh)
+    errs = close(label, *got[0],
+                 torch.load(os.path.join(folder, "j2_ref.pt")), slice(None))
+    run = report["runs"][label]
+    run["first_closure_errs"] = errs
+    log(f"# rank {r}/{RANKS} ({mesh.backend}): {label}, 1 pair per rank, "
+        f"2 batches x 1 step x max_iter 2 at {padder.padded_shape}, bf16: "
+        f"{run['seconds']:.3f} s, peak {run['peak'] / 2**30:.2f} GiB, "
+        f"history counts {counts}, δ bit-identical over the ranks; "
+        f"{close_line(errs)}; launches "
+        f"{json.dumps(nonzero(run['launches']))} [{card}]")
+    del loaded, flow_fn, flow32, batches, state
+    torch.cuda.empty_cache()
+
+    # J.3: RAFT (2× KITTI, materialized) and GMA split by rows, float32
+    label = "ranks J.3 row-sharded RAFT and GMA"
+    smesh = space_mesh()
+    rows = {}
+
+    def closures():
+        for net, hw, seed in (("RAFT", SP_RAFT_HW, 13),
+                              ("GMA", SP_GMA_HW, 14)):
+            model = sp_model(net, RANKS)
+            out, secs, peak = sp_closure(spatial_flow_fn(model, smesh),
+                                         *sp_inputs(hw, seed))
+            ref = torch.load(os.path.join(folder, f"j3_{net}_ref.pt"))
+            errs = []
+            for what, got, want, tol in zip(
+                    ("flow", "d image1", "d image2"), out, ref,
+                    ((1e-4, 1e-4), (1e-3, 1e-6), (1e-3, 1e-6))):
+                err = float((got - want).abs().max())
+                errs.append((what, err, rel_err(got, want)))
+                if not torch.allclose(got, want, rtol=tol[0], atol=tol[1]):
+                    raise AssertionError(
+                        f"rank {r}: {label}: {net} {what} max abs err {err}"
+                        f" (rtol {tol[0]}, atol {tol[1]})")
+            rows[net] = dict(seconds=secs, peak=peak, errs=errs)
+            del model
+            torch.cuda.empty_cache()
+
+    with float32_env():
+        counted(label, closures)
+    report["runs"][label]["models"] = rows
+    run = report["runs"][label]
+    log(f"# rank {r}/{RANKS} ({mesh.backend}): {label}, float32, 1 pair, "
+        f"{RANKS} row shards: " + "; ".join(
+            f"{net} at {hw} {v['seconds']:.3f} s, peak "
+            f"{v['peak'] / 2**30:.2f} GiB, vs unsplit: " + ", ".join(
+                f"{w} max abs {e:.3g} (rel L2 {q:.3g})"
+                for w, e, q in v["errs"])
+            for (net, v), hw in zip(rows.items(), (SP_RAFT_HW, SP_GMA_HW)))
+        + f"; launches {json.dumps(nonzero(run['launches']))} [{card}]")
+
+    with open(os.path.join(folder, f"rank{r}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def pcfa_leaves(res) -> list:
+    return [*res[:-1], *res.metrics]
+
+
+def phase_ranks() -> dict:
+    """Phase 11: slice J on two ranks of the one card, gloo (NCCL refuses
+    two ranks on one card), one launch of `python3 chip_smoke.py --rank`
+    per rank with the rank's environment; each rank runs J.1, J.2 and J.3
+    (see `rank_worker`) against references this process computes first
+    (`rank_references`). A rank that fails, or runs past RANK_TIMEOUT_S,
+    fails the phase. Returns each run's launches, summed over the ranks.
+    Two ranks on one card check correctness; the per-card rate is the
+    one-process rate."""
+    import socket
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pcfa_ranks_") as folder:
+        t = time.perf_counter()
+        peaks, floor = rank_references(folder)
+        t_refs = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs = []
+        t = time.perf_counter()
+        for r in range(RANKS):
+            env = dict(os.environ, MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(RANKS),
+                       RANK=str(r), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(RANKS))
+            with open(os.path.join(folder, f"rank{r}.log"), "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     folder], cwd=os.path.dirname(os.path.abspath(__file__)),
+                    env=env, stdout=f, stderr=subprocess.STDOUT))
+        failed = []
+        try:
+            for r, p in enumerate(procs):
+                left = RANK_TIMEOUT_S - (time.perf_counter() - t)
+                try:
+                    p.wait(timeout=max(left, 1))
+                except subprocess.TimeoutExpired:
+                    failed.append(f"rank {r} ran past {RANK_TIMEOUT_S} s")
+                    break
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for r, p in enumerate(procs):
+            with open(os.path.join(folder, f"rank{r}.log")) as f:
+                out = f.read()
+            for line in out.splitlines():
+                if line.startswith("# ") or line.startswith("pcfa_tpu_torch"):
+                    log(line)
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{out[-3000:]}")
+        if failed:
+            raise AssertionError("phase 11: " + "\n".join(failed))
+        reports = []
+        for r in range(RANKS):
+            with open(os.path.join(folder, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+
+    label = "ranks J.3 row-sharded RAFT and GMA"
+    shape = (1, SP_RAFT_HW[0] // 8, SP_RAFT_HW[1] // 8)
+    pyr = sum((shape[1] >> i) * (shape[2] >> i) for i in range(4))
+    # one copy of the float32 pyramid is live at the closure's peak (its
+    # values in the forward, or its gradient buffers in the backward); a
+    # rank holds half of it
+    pyr_bytes = shape[1] * shape[2] * pyr * 4
+    falls = [peaks["RAFT"]["peak"]
+             - rep["runs"][label]["models"]["RAFT"]["peak"]
+             for rep in reports]
+    if not all(0.8 <= f / (pyr_bytes / 2) <= 1.2 for f in falls):
+        raise AssertionError(
+            f"phase 11: the row-sharded RAFT's peak fell by "
+            f"{[f / 2**30 for f in falls]} GiB, not about half its "
+            f"pyramid's {pyr_bytes / 2**30:.2f} GiB")
+    log(f"# phase 11: float32 first closures in one process, the 2 pairs "
+        f"as one batch vs each pair alone, gradient rel L2: "
+        f"{json.dumps(floor)} [{card_line()}]")
+    log(f"# phase 11: references {t_refs:.1f} s, {RANKS} ranks "
+        f"({reports[0]['backend']}) {wall:.1f} s of wall; unsplit closures "
+        f"(float32, 1 pair): " + ", ".join(
+            f"{net} {v['seconds']:.3f} s, peak {v['peak'] / 2**30:.2f} GiB"
+            for net, v in peaks.items()) + f"; RAFT's materialized pyramid "
+        f"{pyr_bytes / 2**30:.2f} GiB, the ranks' peaks "
+        f"fell by {[round(f / 2**30, 2) for f in falls]} GiB; per-card "
+        f"rate unchanged (two ranks share one card) [{card_line()}]")
+    return {label: {k: sum(rep["runs"][label]["launches"][k]
+                           for rep in reports)
+                    for k in reports[0]["runs"][label]["launches"]}
+            for label in RANK_RUNS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1986,8 +2528,17 @@ def main() -> int:
         return 1
     import pcfa_tpu_torch  # noqa: F401  (fails outside a checkout)
     from pcfa_tpu_torch._device import resolve_device
+    from pcfa_tpu_torch.config import RuntimeConfig
 
-    resolve_device("cuda")  # float32 means float32 on the card (no TF32)
+    resolve_device("cuda")
+    # float32 means float32 on the card: the float32 phases compare with
+    # TF32 off
+    RuntimeConfig("highest").apply()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on (PCFA_MATMUL_PRECISION="
+                             f"{os.environ.get('PCFA_MATMUL_PRECISION')}); "
+                             "the float32 checks need 'highest'")
     profile = "--profile" in sys.argv[1:]
     t0 = time.perf_counter()
     phase_build()
@@ -2007,6 +2558,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for label, n in phase_clis().items():
         by_path[label] = n["launches"]
+    by_path.update(phase_ranks())
 
     kernels = []
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2017,9 +2569,10 @@ def main() -> int:
         # path that launched the kernel most. Every row is printed above.
         paths = {}
         for net, n in by_path.items():
-            kernels_of, rows_of = (CLI_RUNS[net][1], CLI_RUNS[net][0]) \
-                if net in CLI_RUNS else (PATH_KERNELS[net],
-                                         ROW_PATH.get(net, net))
+            runs = {**CLI_RUNS, **RANK_RUNS}
+            kernels_of, rows_of = (runs[net][1], runs[net][0]) \
+                if net in runs else (PATH_KERNELS[net],
+                                     ROW_PATH.get(net, net))
             if name in kernels_of:
                 cand = [r for r in rows if r["name"] == name
                         and r["path"] == rows_of]
@@ -2041,4 +2594,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        rank_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

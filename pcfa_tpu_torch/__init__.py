@@ -20,12 +20,15 @@ Layout (mirrors `pcfa_tpu`):
     metrics/   flow error measures (AAE, EE, AEE, BP, Fl)
     viz/       flow color plots, error maps, quick views, `flow_show`
     data/      Sintel / KITTI / synthetic datasets and the batch loader
-    parallel/  `multihost.process_shard`
+    parallel/  processes, one device each: the group (`multihost`), pairs
+               and the universal batch over ranks (`dp`), RAFT's and GMA's
+               rows over ranks (`sp`)
     utils/     input padding, experiment tracking and artifacts, profiling
     cli/       `python -m pcfa_tpu_torch.cli.{attack_pcfa,attack_fgsm,
                evaluate_pcfa}`
     runtime.py `load_model` (checkpoint or random weights) / `make_flow_fn`
-    config.py  dataset paths and environment knobs shared with `pcfa_tpu`
+    config.py  dataset paths, environment knobs and `RuntimeConfig`
+               (matmul precision) shared with `pcfa_tpu`
 
 Entry points run on `device="cuda"` unless the caller passes
 `device="cpu"`; there is no silent CPU fallback.

@@ -1,14 +1,18 @@
 """Device resolution for the entry points.
 
 `device="cuda"` is the default everywhere and raises when no GPU is
-present; the CPU runs only when the caller asks for it. On the GPU,
-float32 means float32: TF32 is switched off for matmuls and cuDNN
-convolutions alike (cuDNN's TF32 default keeps ~3 decimal digits).
+present; the CPU runs only when the caller asks for it. The precision of
+float32 products on the GPU is `config.RuntimeConfig`'s: the first CUDA
+device resolved in a process where none was applied yet applies the
+default, 'highest' (TF32 off for matmuls and cuDNN convolutions alike;
+cuDNN's own TF32 default keeps ~3 decimal digits).
 """
 
 from __future__ import annotations
 
 import torch
+
+from pcfa_tpu_torch.config import ensure_runtime_config
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -19,8 +23,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "pcfa_tpu_torch: device='cuda' was requested but CUDA is not "
                 "available. Pass device='cpu' to run the plain PyTorch "
                 "versions on the CPU.")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        ensure_runtime_config()
     elif dev.type != "cpu":
         raise ValueError(f"pcfa_tpu_torch: unsupported device {dev}")
     return dev

@@ -87,6 +87,30 @@ def universal_batch_attack(
     over B. Returns (opt_state′, per-step metrics, flow_pred_init,
     flow_pred)."""
     cfg = config
+    target = target.to(opt_state.x.device)
+
+    def value_and_grad(x, perturbed):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            px1, px2, d1, d2 = perturbed(x)
+            loss = loss_delta_constraint(flow_fn(px1, px2), target, d1, d2,
+                                         cfg.delta_bound, cfg.mu, cfg.loss)
+            (grad,) = torch.autograd.grad(loss, x)
+        return loss.detach().reshape(1).to(x.dtype), grad
+
+    return run_batch(flow_fn, images1, images2, target, opt_state, cfg,
+                     value_and_grad, avg_epe)
+
+
+def run_batch(flow_fn, images1, images2, target, opt_state: LBFGSState,
+              cfg: UniversalConfig, value_and_grad, mean_epe
+              ) -> tuple[LBFGSState, UniversalMetrics, torch.Tensor,
+                         torch.Tensor]:
+    """The batch loop of `universal_batch_attack`, given the objective
+    `value_and_grad(x, perturbed)` → ((1,) value, (1, n) gradient), where
+    `perturbed(x)` gives (clipped frames 1 and 2, δ1, δ2), and the mean
+    endpoint error `mean_epe(a, b)` the metrics take over the batch. The
+    data-parallel engine (`parallel.dp`) passes its global ones."""
     delta_shape = tuple(images1.shape[1:])
     dev = opt_state.x.device
     images1, images2, target = (t.to(dev) for t in (images1, images2,
@@ -96,30 +120,21 @@ def universal_batch_attack(
         d1, d2 = unpack_deltas(x[0], delta_shape, cfg.joint_perturbation)
         return clip01(images1 + d1[None]), clip01(images2 + d2[None]), d1, d2
 
-    def value_and_grad(x):
-        with torch.enable_grad():
-            x = x.detach().requires_grad_(True)
-            px1, px2, d1, d2 = perturbed(x)
-            loss = loss_delta_constraint(flow_fn(px1, px2), target, d1, d2,
-                                         cfg.delta_bound, cfg.mu, cfg.loss)
-            (grad,) = torch.autograd.grad(loss, x)
-        return loss.detach().reshape(1).to(x.dtype), grad
-
     with torch.no_grad():
         flow_pred_init = flow_fn(images1, images2)
     steps = []
     for _ in range(cfg.steps):
         for pos in range(cfg.max_iter):
             opt_state, seg_loss = lbfgs_iteration(
-                value_and_grad, opt_state, pos, lr=cfg.lr,
-                direction=cfg.lbfgs_direction)
+                lambda x: value_and_grad(x, perturbed), opt_state, pos,
+                lr=cfg.lr, direction=cfg.lbfgs_direction)
         with torch.no_grad():
             px1, px2, d1, d2 = perturbed(opt_state.x)
             flow_pred = flow_fn(px1, px2)
             steps.append(UniversalMetrics(
                 loss=seg_loss[0],
-                aee_adv_tgt=avg_epe(flow_pred, target),
-                aee_adv_pred=avg_epe(flow_pred, flow_pred_init),
+                aee_adv_tgt=mean_epe(flow_pred, target),
+                aee_adv_pred=mean_epe(flow_pred, flow_pred_init),
                 l2_delta1=two_norm_avg(d1),
                 l2_delta2=two_norm_avg(d2),
                 l2_delta12=two_norm_avg_delta(d1, d2),

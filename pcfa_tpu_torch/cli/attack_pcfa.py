@@ -11,12 +11,18 @@ artifact is the JAX CLI's.
 
 `main(argv, device="cuda")` runs on the card and raises where there is
 none; tests pass `device="cpu"`. `--pairs_per_device=N` attacks N pairs
-at once as one batch on the one device (the engine keeps them
+at once as one batch on each device (the engine keeps them
 independent); the last batch of a dataset runs short. Calls are eager:
-one flow function per run, built at the first batch's size.
+one flow function per run, built at the first batch's size. Started as
+several processes (`torchrun`, `parallel/multihost.py`), both branches
+split the dataset over the ranks, one device each, and rank 0 writes
+the run's one folder.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -33,6 +39,16 @@ from pcfa_tpu_torch.attack.universal import (
 from pcfa_tpu_torch.cli import common
 from pcfa_tpu_torch.cli.evaluate_pcfa import load_delta_nhwc
 from pcfa_tpu_torch.cli.parsing import create_parser
+from pcfa_tpu_torch.parallel.dp import (
+    gather_pairs,
+    global_mean_epe,
+    universal_batch_attack_dp,
+)
+from pcfa_tpu_torch.parallel.mesh import (
+    all_gather_object,
+    all_reduce_min,
+    data_mesh,
+)
 from pcfa_tpu_torch.runtime import make_flow_fn
 from pcfa_tpu_torch.utils import tracking
 from pcfa_tpu_torch.utils.tracking import (
@@ -97,12 +113,19 @@ def _log_setup_params(tracker, args, mu, batch_size, epochs):
 
 
 def attack_l2(args, device: str | torch.device = "cuda") -> dict:
-    """Per-image (disjoint/joint) PCFA over a dataset."""
+    """Per-image (disjoint/joint) PCFA over a dataset. Over several ranks
+    (`parallel/multihost.py`) each rank attacks the pairs of its slice of
+    the dataset on its device, `--pairs_per_device` at a time; the results
+    are gathered and rank 0 alone logs every pair under its dataset index
+    and writes the run's one folder. Other ranks return {}."""
     dev = common.setup_runtime(device)
+    mesh = data_mesh()
+    main_rank = mesh.rank == 0
     mu = resolve_mu(args)
     tracker = Tracker(args.output_folder, args.net, "PCFA",
-                      args.joint_perturbation, False)
-    _banner(args, mu, tracker.folder_path, universal=False)
+                      args.joint_perturbation, False) if main_rank else None
+    if main_rank:
+        _banner(args, mu, tracker.folder_path, universal=False)
 
     cfg = PCFAConfig(
         steps=args.steps,
@@ -116,12 +139,19 @@ def attack_l2(args, device: str | torch.device = "cuda") -> dict:
         lbfgs_history_dtype=config.lbfgs_history_dtype(args.net),
     )
 
-    pair_chunk = max(1, args.pairs_per_device)
-    if pair_chunk > 1:
+    per_device = max(1, args.pairs_per_device)
+    pair_chunk = mesh.size * per_device
+    if pair_chunk > 1 and main_rank:
         print(f"Running {pair_chunk} per-image attacks in parallel "
-              f"({pair_chunk} per device × 1 device)\n")
-    loader, has_gt = common.make_loader(args, batch_size=pair_chunk)
+              f"({per_device} per device × {mesh.size} device"
+              f"{'s' if mesh.size > 1 else ''})\n")
+    loader, has_gt = common.make_loader(args, batch_size=per_device)
     loaded = common.load_attack_model(args, dev)
+    # each rank's first dataset index, and the batches every rank takes
+    # part in: a rank whose slice has run out joins each gather empty
+    sizes = all_gather_object(len(loader.dataset), mesh)
+    starts = [sum(sizes[:r]) for r in range(mesh.size)]
+    n_batches = max(-(-n // per_device) for n in sizes)
 
     flow_fn = None
     sums = {k: 0.0 for k in (
@@ -131,26 +161,39 @@ def attack_l2(args, device: str | torch.device = "cuda") -> dict:
     )}
     tests = 0
 
-    with tracker:
-        _log_setup_params(tracker, args, mu, 1, 1)
-        patches = tracking.create_subfolder(tracker.folder_path, "patches")
+    with tracker or contextlib.nullcontext():
+        if main_rank:
+            _log_setup_params(tracker, args, mu, 1, 1)
+            patches = tracking.create_subfolder(tracker.folder_path,
+                                                "patches")
+        batches = iter(common.progress(loader))
+        for batch in range(n_batches):
+            local = None
+            item = next(batches, None)
+            if item is not None:
+                img1, img2, flow_gt, _valid = item
+                x1, x2 = common.unit_images(img1, img2, dev)
+                if flow_fn is None:
+                    padder, flow_fn = make_flow_fn(
+                        loaded, x1.shape[1:3],
+                        common.pad_mode_for(args.dataset))
+                p1, p2 = padder.pad(x1, x2)
 
-        for batch, (img1, img2, flow_gt, _valid) in enumerate(
-                common.progress(loader)):
-            x1, x2 = common.unit_images(img1, img2, dev)
-            if flow_fn is None:
-                padder, flow_fn = make_flow_fn(
-                    loaded, x1.shape[1:3], common.pad_mode_for(args.dataset))
-            p1, p2 = padder.pad(x1, x2)
-
-            with torch.no_grad():
-                flow_pred_init = flow_fn(p1, p2)
-            target = common.build_target(args, flow_pred_init)
-            res = pcfa_attack(flow_fn, p1, p2, target, cfg, device=dev)
+                with torch.no_grad():
+                    flow_pred_init = flow_fn(p1, p2)
+                target = common.build_target(args, flow_pred_init)
+                res = pcfa_attack(flow_fn, p1, p2, target, cfg, device=dev)
+                local = (res, p1, p2, target, flow_pred_init,
+                         torch.from_numpy(flow_gt).to(dev))
+            gathered, counts = gather_pairs(local, mesh, dev)
+            if not main_rank:
+                continue
+            res, p1, p2, target, flow_pred_init, flow_gt = gathered
             m_all = common.host_metrics(res.metrics, PCFAMetrics)
+            pairs = [starts[r] + batch * per_device + i
+                     for r, n in enumerate(counts) for i in range(n)]
 
-            for i in range(p1.shape[0]):
-                pair = batch * pair_chunk + i
+            for i, pair in enumerate(pairs):
                 m = PCFAMetrics(*(a[i] for a in m_all))
                 res_i = res._replace(**{
                     k: v[i:i + 1] for k, v in res._asdict().items()
@@ -208,6 +251,8 @@ def attack_l2(args, device: str | torch.device = "cuda") -> dict:
                     sums["aee_adv_gt"] += aee_adv_gt
                 tests += 1
 
+        if not main_rank:
+            return {}
         averages = tracker.log_averages(
             tests,
             ("aee_avg_pred-gt", sums["aee_gt"] if has_gt else None),
@@ -285,12 +330,20 @@ def _resume_x(path: str, cfg: UniversalConfig, device) -> torch.Tensor:
 def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
     """Universal-δ trainer: one δ (two in disjoint mode) for the whole
     dataset, its L-BFGS state carried over every batch of every epoch.
-    A ragged last batch is dropped, as the JAX CLI drops it."""
+    A ragged last batch is dropped, as the JAX CLI drops it. Over several
+    ranks the global batch is `--batch_size` × ranks, each rank's batch
+    from its slice of the dataset (`parallel/dp.py`); the ranks agree each
+    epoch on the number of full batches (their minimum), every logged
+    metric is the global batch's, and rank 0 alone writes the run's
+    folder (the per-epoch artifacts of the global batch)."""
     dev = common.setup_runtime(device)
+    mesh = data_mesh()
+    main_rank = mesh.rank == 0
     mu = resolve_mu(args)
     tracker = Tracker(args.output_folder, args.net, "PCFA",
-                      args.joint_perturbation, True)
-    _banner(args, mu, tracker.folder_path, universal=True)
+                      args.joint_perturbation, True) if main_rank else None
+    if main_rank:
+        _banner(args, mu, tracker.folder_path, universal=True)
 
     cfg = UniversalConfig(
         steps=args.steps,
@@ -305,23 +358,43 @@ def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
     loader, has_gt = common.make_loader(args, batch_size=args.batch_size,
                                         shuffle=True)
     loaded = common.load_attack_model(args, dev)
+    if mesh.size == 1:
+        epe, attack = common.epe, universal_batch_attack
+    else:
+        if main_rank:
+            print(f"Sharding universal training over {mesh.size} ranks "
+                  f"(axis 'data', backend {mesh.backend})")
+
+        def epe(a, b):
+            return float(global_mean_epe(a, b, mesh))
+
+        attack = functools.partial(universal_batch_attack_dp, mesh=mesh)
+    full = torch.tensor([len(loader.dataset) // args.batch_size],
+                        device=dev)
+    n_full = int(all_reduce_min(full, mesh)[0])
 
     flow_fn = None
     opt_state = None
     batch_ctr = -1
 
-    with tracker:
-        _log_setup_params(tracker, args, mu, args.batch_size, args.epochs)
-        patches = tracking.create_subfolder(tracker.folder_path, "patches")
-        kw = dict(tracker=tracker, register=not args.unregistered_artifacts)
+    with tracker or contextlib.nullcontext():
+        if main_rank:
+            _log_setup_params(tracker, args, mu, args.batch_size,
+                              args.epochs)
+            patches = tracking.create_subfolder(tracker.folder_path,
+                                                "patches")
+            kw = dict(tracker=tracker,
+                      register=not args.unregistered_artifacts)
 
         for epoch in range(args.epochs):
-            print("epoch: %d" % epoch)
-            epoch_ran = False
+            if main_rank:
+                print("epoch: %d" % epoch)
+            done = 0
             for batch, (img1, img2, flow_gt, _valid) in enumerate(
                     common.progress(loader)):
                 batch_ctr += 1
                 x1, x2 = common.unit_images(img1, img2, dev)
+                flow_gt = torch.from_numpy(flow_gt).to(dev)
                 if flow_fn is None:
                     padder, flow_fn = make_flow_fn(
                         loaded, x1.shape[1:3],
@@ -331,10 +404,11 @@ def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
                     if getattr(args, "resume_from", None):
                         opt_state = opt_state._replace(
                             x=_resume_x(args.resume_from, cfg, dev))
-                        print("Resumed universal delta from %s"
-                              % args.resume_from)
+                        if main_rank:
+                            print("Resumed universal delta from %s"
+                                  % args.resume_from)
                 p1, p2 = padder.pad(x1, x2)
-                if p1.shape[0] != args.batch_size:
+                if p1.shape[0] != args.batch_size or done == n_full:
                     continue
 
                 with torch.no_grad():
@@ -342,19 +416,21 @@ def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
                 target = common.build_target(args, flow_pred_init)
 
                 curr = batch_ctr * args.steps
-                aee_tgt = common.epe(target, flow_pred_init)
-                tracker.log_metrics(
-                    curr,
-                    ("aee_pred-tgt", aee_tgt),
-                    ("aee_gt-tgt",
-                     common.epe(target, flow_gt) if has_gt else None),
-                    ("aee_pred-gt",
-                     common.epe(flow_pred_init, flow_gt) if has_gt else None),
-                )
-
-                opt_state, metrics, _, flow_pred = universal_batch_attack(
+                logged = [("aee_pred-tgt", epe(target, flow_pred_init)),
+                          ("aee_gt-tgt",
+                           epe(target, flow_gt) if has_gt else None),
+                          ("aee_pred-gt",
+                           epe(flow_pred_init, flow_gt) if has_gt else None)]
+                opt_state, metrics, _, flow_pred = attack(
                     flow_fn, p1, p2, target, opt_state, cfg)
-                epoch_ran = True
+                done += 1
+                last = (p1, p2, target, flow_pred, flow_pred_init, flow_gt)
+                aee_adv_gt = epe(flow_pred, flow_gt) if has_gt else None
+                d1, d2 = unpack_deltas(opt_state.x[0], delta_shape,
+                                       cfg.joint_perturbation)
+                if not main_rank:
+                    continue
+                tracker.log_metrics(curr, *logged)
                 m = common.host_metrics(metrics, UniversalMetrics)
                 for s in range(args.steps):
                     cs = batch_ctr * args.steps + s
@@ -368,13 +444,8 @@ def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
                         ("l2_delta-avg", m.l2_delta12[s]),
                     )
                 if has_gt:
-                    tracker.log_metric(
-                        "aee_predadv-gt", common.epe(flow_pred, flow_gt),
-                        (batch_ctr + 1) * args.steps - 1,
-                    )
-
-                d1, d2 = unpack_deltas(opt_state.x[0], delta_shape,
-                                       cfg.joint_perturbation)
+                    tracker.log_metric("aee_predadv-gt", aee_adv_gt,
+                                       (batch_ctr + 1) * args.steps - 1)
                 if common.should_save(batch_ctr, args):
                     save_tensor(d1, f"delta1_b{batch_ctr}", batch_ctr,
                                 patches, **kw)
@@ -382,13 +453,19 @@ def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
                                 patches, **kw)
 
             # ---- per-epoch artifacts --------------------------------------
-            if not epoch_ran:
+            if not done:
                 raise ValueError(
                     f"no full batch of size {args.batch_size} in the "
                     f"dataset — reduce --batch_size (ragged batches are "
                     f"dropped: the universal δ optimizer state is shaped "
                     f"for full batches)"
                 )
+            if mesh.size > 1:
+                # the global batch last attacked: images, targets, flows
+                (p1, p2, target, flow_pred, flow_pred_init, flow_gt), _ = \
+                    gather_pairs(last, mesh, dev)
+            if not main_rank:
+                continue
             save_tensor(d1, f"delta1_e{epoch}", batch_ctr, patches, **kw)
             max_delta = max(float(d1.abs().max()), float(d2.abs().max()))
             save_image(d1, batch_ctr, patches, image_name=f"delta1_e{epoch}",
@@ -427,6 +504,8 @@ def attack_l2_universal(args, device: str | torch.device = "cuda") -> dict:
                     save_flow(flow_gt, batch, patches, flow_name="flow_gt",
                               auto_scale=False, max_scale=mf, **kw)
 
+    if not main_rank:
+        return {}
     print(
         "\nFinished attacking with PCFA, universal perturbations have been "
         "produced and are logged at\n%s" % tracker.folder_path

@@ -11,15 +11,23 @@ import torch
 from pcfa_tpu_torch._device import resolve_device
 from pcfa_tpu_torch.attack.losses import avg_epe
 from pcfa_tpu_torch.attack.targets import make_target_fn
+from pcfa_tpu_torch.config import RuntimeConfig
 from pcfa_tpu_torch.data import prepare_dataloader
+from pcfa_tpu_torch.parallel.multihost import initialize
 from pcfa_tpu_torch.runtime import LoadedModel, load_model
 from pcfa_tpu_torch.utils.arrays import to_numpy
 
 
 def setup_runtime(device: str | torch.device = "cuda") -> torch.device:
-    """The device the run uses: CUDA raises where there is none, and
-    float32 stays float32 on the card (no TF32)."""
-    return resolve_device(device)
+    """Join the process group (a no-op in a one-process run,
+    `parallel/multihost.py`), then the device the run uses (CUDA raises
+    where there is none; a rank takes its own card), then the precision
+    of `RuntimeConfig` ('highest' unless PCFA_MATMUL_PRECISION says
+    otherwise: float32 stays float32 on the card)."""
+    initialize()
+    dev = resolve_device(device)
+    RuntimeConfig().apply()
+    return dev
 
 
 def load_attack_model(args, device: torch.device) -> LoadedModel:

@@ -1,15 +1,13 @@
 """Static configuration shared with `pcfa_tpu/config.py` (same names, same
 defaults): the dataset splits and roots (`PCFA_SINTEL_ROOT`,
 `PCFA_KITTI15_ROOT`, then `pcfa_paths.json` in the working directory),
-and the environment knobs `PCFA_LBFGS_DIRECTION`, `PCFA_LBFGS_DTYPE`
-(with its refusal for PWCNet), `PCFA_COMPUTE_DTYPE`,
-`PCFA_CORR_HBM_BUDGET_MB` and `PCFA_GRU_FUSED`.
+the environment knobs `PCFA_LBFGS_DIRECTION`, `PCFA_LBFGS_DTYPE` (with its
+refusal for PWCNet), `PCFA_COMPUTE_DTYPE`, `PCFA_CORR_HBM_BUDGET_MB` and
+`PCFA_GRU_FUSED`, and `RuntimeConfig` (`PCFA_MATMUL_PRECISION`).
 
-`pcfa_tpu`'s `RuntimeConfig` (`PCFA_MATMUL_PRECISION`,
-`PCFA_COMPILE_CACHE`) sets XLA's matmul precision and compile cache: the
-port has no counterpart of either. Its float32 is always float32
-(`_device.resolve_device` switches TF32 off) and it compiles nothing
-per run but the kernels, built once per checkout.
+`pcfa_tpu`'s `PCFA_COMPILE_CACHE` has no counterpart: the port traces and
+compiles nothing per run. Its only compiled code is the CUDA kernels,
+built once per checkout (`ops/_build.py`).
 """
 
 from __future__ import annotations
@@ -112,3 +110,55 @@ def corr_hbm_budget_bytes() -> int:
 def gru_fused() -> bool:
     """PCFA_GRU_FUSED=1: the SepConvGRU's z and r gates as one conv."""
     return os.environ.get("PCFA_GRU_FUSED", "0") == "1"
+
+
+MATMUL_PRECISIONS = ("highest", "high", "default")
+
+#: the RuntimeConfig last applied in this process (None: none yet)
+_applied: "RuntimeConfig | None" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Precision and debugging switches of a run (`pcfa_tpu`'s
+    `RuntimeConfig`). `PCFA_MATMUL_PRECISION`, when set, overrides
+    `matmul_precision`. On an H100:
+
+    * 'highest' (the default): float32 matrix products and cuDNN
+      convolutions in full float32 (TF32 off). Every float32 parity check
+      runs under it.
+    * 'high' and 'default': float32 products and cuDNN convolutions on
+      the TF32 tensor cores (inputs rounded to a 10-bit mantissa, float32
+      accumulation), at up to ~7× the CUDA cores' float32 rate (published
+      dense peaks, 495 against 67 TFLOP/s); products keep about 3
+      decimal digits. The JAX package's
+      'default' is a bf16 pass on a TPU; the port takes TF32 for both,
+      which cuDNN's convolutions also offer. bf16 networks
+      (`PCFA_COMPUTE_DTYPE`) are not affected by either.
+
+    `debug_nans` switches on `torch.autograd.set_detect_anomaly`: a
+    backward that makes a NaN raises at the operation that made it, as
+    `jax_debug_nans` does (it slows every backward)."""
+
+    matmul_precision: str = "highest"
+    debug_nans: bool = False
+
+    def apply(self) -> None:
+        global _applied
+        p = os.environ.get("PCFA_MATMUL_PRECISION", self.matmul_precision)
+        if p not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul precision {p!r}: expected one of "
+                             f"{MATMUL_PRECISIONS}")
+        tf32 = p != "highest"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.autograd.set_detect_anomaly(self.debug_nans)
+        _applied = self
+
+
+def ensure_runtime_config() -> None:
+    """Apply the default `RuntimeConfig()` unless one was applied in this
+    process already: an entry point called without the CLIs' set-up still
+    runs float32 as float32 ('highest', or `PCFA_MATMUL_PRECISION`)."""
+    if _applied is None:
+        RuntimeConfig().apply()

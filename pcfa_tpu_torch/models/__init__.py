@@ -9,7 +9,12 @@ from pcfa_tpu_torch.models.gma import GMA
 from pcfa_tpu_torch.models.pwcnet import PWCDCNet
 from pcfa_tpu_torch.models.raft import RAFT
 from pcfa_tpu_torch.models.raft_small import RAFTSmall
-from pcfa_tpu_torch.models.spec import ModelSpec, get_spec, register
+from pcfa_tpu_torch.models.spec import (
+    ModelSpec,
+    available_models,
+    get_spec,
+    register,
+)
 from pcfa_tpu_torch.models.spynet import SpyNet
 
 register(
@@ -71,5 +76,5 @@ def make_model(name: str, **overrides):
     return spec.make(**kwargs), spec
 
 
-__all__ = ["ModelSpec", "get_spec", "make_model", "register", "FlowNet2",
+__all__ = ["ModelSpec", "available_models", "get_spec", "make_model", "register", "FlowNet2",
            "GMA", "PWCDCNet", "RAFT", "RAFTSmall", "SpyNet"]

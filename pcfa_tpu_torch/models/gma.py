@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from pcfa_tpu_torch.models.raft import RAFT, BasicUpdateBlock
+from pcfa_tpu_torch.parallel.mesh import Mesh, gather_rows, reduce_grad
 
 
 class RelPosEmb(nn.Module):
@@ -67,12 +68,21 @@ class Attention(nn.Module):
         if position_only or position_and_content:
             self.pos_emb = RelPosEmb(max_pos_size, dim_head)
 
-    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, fmap: torch.Tensor,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """`rows` (start, stop): only the queries of those rows of the map
+        (row sharding, `parallel/sp.py`) → (B, heads, rows·W, H·W)."""
         B, _, H, W = fmap.shape
         q, k = self.to_qk(fmap).chunk(2, dim=1)
         # (B, heads·d, H, W) → (B, heads, H·W, d)
         q, k = (t.reshape(B, self.heads, self.dim_head, H * W)
                 .transpose(-1, -2) for t in (q, k))
+        if rows is not None:
+            if self.position_only or self.position_and_content:
+                raise NotImplementedError(
+                    "spatial sharding of the positional-attention variants "
+                    "is not implemented (dead weights in the shipped config)")
+            q = q[:, :, rows[0] * W:rows[1] * W]
         q = q * self.dim_head ** -0.5
         if self.position_only or self.position_and_content:
             sim_pos = self.pos_emb(q.reshape(B, self.heads, H, W, -1))
@@ -99,10 +109,17 @@ class Aggregate(nn.Module):
             self.project = nn.Conv2d(inner, dim, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
 
-    def forward(self, attn: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, attn: torch.Tensor, fmap: torch.Tensor,
+                mesh: Mesh | None = None) -> torch.Tensor:
+        """`mesh`: `attn` holds this rank's query rows; the aggregate of
+        every row is all-gathered."""
         B, _, H, W = fmap.shape
         v = self.to_v(fmap).reshape(B, self.heads, self.dim_head, H * W)
+        if mesh is not None:
+            v = reduce_grad(v, mesh)
         out = torch.matmul(attn, v.transpose(-1, -2))  # (B, heads, HW, d)
+        if mesh is not None:
+            out = gather_rows(out, mesh, 2)
         out = out.transpose(-1, -2).reshape(B, -1, H, W)
         if hasattr(self, "project"):
             out = self.project(out)
@@ -119,9 +136,10 @@ class GMAUpdateBlock(BasicUpdateBlock):
                          gru_input_dim=128 + 2 * hidden_dim)
         self.aggregator = Aggregate(128, heads, 128)
 
-    def forward(self, net, inp, corr, flow, attention, gates=None):
+    def forward(self, net, inp, corr, flow, attention, mesh=None,
+                gates=None):
         motion = self.encoder(flow, corr)
-        motion_global = self.aggregator(attention, motion)
+        motion_global = self.aggregator(attention, motion, mesh)
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1),
                        gates)
         return net, self.flow_head(net)
@@ -130,7 +148,8 @@ class GMAUpdateBlock(BasicUpdateBlock):
 class GMA(RAFT):
     """RAFT-GMA (6 refinement iterations by default). The shipped config
     is content-only attention with one head. `corr_impl`, `corr_block`,
-    `remat` and `remat_policy` as RAFT's."""
+    `remat`, `remat_policy` and `spatial_shards` as RAFT's; under row
+    sharding each rank keeps its query rows of the attention."""
 
     def __init__(self, iters: int = 6, corr_levels: int = 4,
                  corr_radius: int = 4, hidden_dim: int = 128,
@@ -138,15 +157,21 @@ class GMA(RAFT):
                  position_only: bool = False,
                  position_and_content: bool = False, corr_impl: str = "auto",
                  corr_block: int = 1024, remat: bool = False,
-                 remat_policy: str | None = None):
+                 remat_policy: str | None = None, spatial_shards: int = 1):
         super().__init__(iters, corr_levels, corr_radius, hidden_dim,
                          context_dim, corr_impl, corr_block, remat,
-                         remat_policy)
+                         remat_policy, spatial_shards)
         self.update_block = GMAUpdateBlock(hidden_dim, corr_levels,
                                            corr_radius, num_heads)
         self.att = Attention(context_dim, num_heads, context_dim,
                              position_only=position_only,
                              position_and_content=position_and_content)
 
-    def update_context(self, inp: torch.Tensor) -> tuple:
-        return (self.att(inp),)
+    def update_context(self, inp: torch.Tensor,
+                       mesh: Mesh | None = None) -> tuple:
+        """(attention, mesh): under row sharding this rank's query rows of
+        the attention, from the context features through f."""
+        if mesh is None:
+            return self.att(inp), None
+        rows = mesh.rows(inp.shape[2])
+        return self.att(reduce_grad(inp, mesh), rows), mesh

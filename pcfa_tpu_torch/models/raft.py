@@ -16,7 +16,9 @@ the JAX package:
 * coords and flow stay float32; corr features and the flow entering the
   motion encoder take the network's dtype;
 * the upsampling-mask head runs once, on the final GRU state;
-* convex 8× upsampling with 0.25-scaled mask logits.
+* convex 8× upsampling with 0.25-scaled mask logits;
+* `spatial_shards` > 1 splits the pyramid (and GMA's attention) by rows
+  over the ranks of the 'space' mesh (`parallel/sp.py`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from pcfa_tpu_torch.config import gru_fused
 from pcfa_tpu_torch.models.layers import BasicEncoder
 from pcfa_tpu_torch.ops.correlation import make_corr_lookup, resolve_corr_impl
 from pcfa_tpu_torch.ops.warp import coords_grid
+from pcfa_tpu_torch.parallel.mesh import Mesh, gather_rows, reduce_grad
 
 # the matrix products and convolutions 'dots' keeps: everything else in
 # an iteration is recomputed in the backward
@@ -196,13 +199,15 @@ class RAFT(nn.Module):
     'fused' or 'hybrid'; `corr_block` queries per block of the last two.
     `remat` / `remat_policy`: see `refine`; the policies are those of
     `pcfa_tpu/models/raft.py:_remat_body`, None (recompute the whole
-    iteration) or 'dots' (keep its products' outputs)."""
+    iteration) or 'dots' (keep its products' outputs).
+    `spatial_shards`: the ranks of the 'space' mesh (`sp.space_mesh`) the
+    pyramid's rows are split over (`parallel/sp.py`); 1 runs whole."""
 
     def __init__(self, iters: int = 12, corr_levels: int = 4,
                  corr_radius: int = 4, hidden_dim: int = 128,
                  context_dim: int = 128, corr_impl: str = "auto",
                  corr_block: int = 1024, remat: bool = False,
-                 remat_policy: str | None = None):
+                 remat_policy: str | None = None, spatial_shards: int = 1):
         super().__init__()
         if remat and remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
@@ -214,33 +219,65 @@ class RAFT(nn.Module):
         self.corr_block = corr_block
         self.remat = remat
         self.remat_policy = remat_policy
+        self.spatial_shards = spatial_shards
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(hidden_dim + context_dim, "batch")
         self.update_block = BasicUpdateBlock(hidden_dim, corr_levels,
                                              corr_radius)
 
-    def update_context(self, inp: torch.Tensor) -> tuple:
+    def update_context(self, inp: torch.Tensor,
+                       mesh: Mesh | None = None) -> tuple:
         """Loop-invariant inputs of the update block beside `inp` (none
         for RAFT; GMA's attention)."""
         return ()
+
+    def _space_mesh(self) -> Mesh | None:
+        """The 'space' mesh the rows are split over; None when whole."""
+        if self.spatial_shards == 1:
+            return None
+        from pcfa_tpu_torch.parallel.sp import space_mesh
+
+        mesh = space_mesh()
+        if mesh.size != self.spatial_shards:
+            raise ValueError(f"spatial_shards={self.spatial_shards} needs "
+                             f"as many ranks; the 'space' mesh has "
+                             f"{mesh.size}")
+        return mesh
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor):
         x1 = (2.0 * image1 - 1.0).permute(0, 3, 1, 2)
         x2 = (2.0 * image2 - 1.0).permute(0, 3, 1, 2)
 
+        mesh = self._space_mesh()
         fmaps = self.fnet(torch.cat([x1, x2], dim=0)).permute(0, 2, 3, 1)
+        if mesh is not None:
+            fmaps = reduce_grad(fmaps, mesh)
         fmap1, fmap2 = fmaps.chunk(2, dim=0)
         impl = resolve_corr_impl(self.corr_impl, fmap1.shape, fmap2.shape,
-                                 self.corr_levels, fmap1.dtype)
-        lookup = make_corr_lookup(impl, fmap1, fmap2, self.corr_levels,
-                                  self.corr_radius, self.corr_block)
+                                 self.corr_levels, fmap1.dtype,
+                                 self.spatial_shards)
+        if mesh is None:
+            lookup = make_corr_lookup(impl, fmap1, fmap2, self.corr_levels,
+                                      self.corr_radius, self.corr_block)
+        else:
+            if impl == "hybrid":
+                raise NotImplementedError(
+                    "corr_impl='hybrid' is not supported under spatial "
+                    "sharding (use 'materialized' or 'fused')")
+            r0, r1 = mesh.rows(fmap1.shape[1])
+            rows = make_corr_lookup(impl, fmap1[:, r0:r1], fmap2,
+                                    self.corr_levels, self.corr_radius,
+                                    self.corr_block)
+
+            def lookup(c):
+                return gather_rows(rows(c[:, r0:r1]), mesh, 1)
 
         cnet = self.cnet(x1)
         net, inp = torch.split(cnet, [self.hidden_dim,
                                       cnet.shape[1] - self.hidden_dim], dim=1)
         net = torch.tanh(net)
         inp = torch.relu(inp)
-        context = self.update_context(inp)
+        context = self.update_context(inp, mesh)
         gates = self.update_block.gru.gate_weights()
 
         B, _, H8, W8 = net.shape

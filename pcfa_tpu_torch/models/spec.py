@@ -43,3 +43,8 @@ def get_spec(name: str) -> ModelSpec:
         raise KeyError(
             f"Unknown flow network '{name}'. Ported so far: "
             f"{sorted(_REGISTRY)}") from None
+
+
+def available_models() -> list[str]:
+    """The registered networks' names, sorted."""
+    return sorted(_REGISTRY)

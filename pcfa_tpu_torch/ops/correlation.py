@@ -36,11 +36,14 @@ CORR_IMPLS = ("materialized", "fused", "hybrid")
 
 
 def resolve_corr_impl(impl: str, fmap1_shape: tuple, fmap2_shape: tuple,
-                      num_levels: int, dtype: torch.dtype) -> str:
+                      num_levels: int, dtype: torch.dtype,
+                      spatial_shards: int = 1) -> str:
     """Resolve `corr_impl='auto'` as `pcfa_tpu` does: materialize the
     pyramid while its forward plus cotangent footprint fits
     PCFA_CORR_HBM_BUDGET_MB (default 6 GiB), else the blockwise fused
-    lookup. 'materialized', 'fused' and 'hybrid' are returned as given."""
+    lookup; split by rows over `spatial_shards` ranks, one rank holds
+    1/spatial_shards of the pyramid. 'materialized', 'fused' and 'hybrid'
+    are returned as given."""
     if impl == "auto":
         B, H1, W1, _ = fmap1_shape
         _, H2, W2, _ = fmap2_shape
@@ -49,7 +52,8 @@ def resolve_corr_impl(impl: str, fmap1_shape: tuple, fmap2_shape: tuple,
             pyr_elems += h * w
             h, w = max(h // 2, 1), max(w // 2, 1)
         itemsize = torch.empty((), dtype=dtype).element_size()
-        est = 2 * B * H1 * W1 * pyr_elems * itemsize
+        est = (2 * B * (H1 * W1 // max(spatial_shards, 1)) * pyr_elems
+               * itemsize)
         return "materialized" if est <= corr_hbm_budget_bytes() else "fused"
     if impl not in CORR_IMPLS:
         raise ValueError(f"corr_impl={impl!r}: expected 'auto' or one of "

@@ -135,6 +135,15 @@ class _PackedBilinear(torch.autograd.Function):
         return dimg, dix, diy, None
 
 
+def _clip(x: torch.Tensor, hi: float) -> torch.Tensor:
+    """x clipped to [0, hi] as `jnp.clip` clips it: max with 0, then min
+    with hi, so the derivative exactly on either bound is ½
+    (`torch.clamp`'s is 1). The bounds are 0-dim CPU tensors, which a CUDA
+    operand takes as scalars."""
+    zero = torch.zeros((), dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, zero), zero + hi)
+
+
 def grid_sample(img: torch.Tensor, grid: torch.Tensor,
                 align_corners: bool = False,
                 padding_mode: str = "zeros") -> torch.Tensor:
@@ -142,7 +151,9 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
     channels-last tensors, through the packed-corner sampler.
 
     img: (B, H, W, C); grid: (B, Hg, Wg, 2) in [−1, 1], (x, y) order.
-    Returns (B, Hg, Wg, C) in the promoted dtype of img and grid."""
+    Returns (B, Hg, Wg, C) in the promoted dtype of img and grid. In
+    border mode the pixel coordinates are clipped by `_clip`, so d grid
+    exactly on the edge is ½ of the slope inside, as `pcfa_tpu`'s."""
     B, H, W, C = img.shape
     x, y = grid[..., 0], grid[..., 1]
     if align_corners:
@@ -152,8 +163,7 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
         ix = ((x + 1.0) * W - 1.0) * 0.5
         iy = ((y + 1.0) * H - 1.0) * 0.5
     if padding_mode == "border":
-        ix = torch.clamp(ix, 0.0, W - 1)
-        iy = torch.clamp(iy, 0.0, H - 1)
+        ix, iy = _clip(ix, W - 1), _clip(iy, H - 1)
     elif padding_mode != "zeros":
         raise ValueError(f"unsupported padding_mode: {padding_mode}")
     return _PackedBilinear.apply(img, ix, iy, padding_mode == "zeros")
