@@ -29,6 +29,7 @@ from pcfa_tpu_torch.attack.losses import (
     two_norm_avg_delta,
 )
 from pcfa_tpu_torch.attack.pcfa import _per_pair
+from pcfa_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,32 +63,38 @@ def fgsm_step(flow_fn, image1, image2, target, flow_pred_init,
                          tuple[FGSMMetrics, torch.Tensor]]:
     """One I-FGSM step: `carry = (nw1, nw2)`, the current network inputs
     (B, H, W, 3) → (new carry, (metrics, flow_pred))."""
-    cfg = config
+    with profiling.span("fgsm.step"):
+        return _fgsm_step(flow_fn, image1, image2, target, flow_pred_init,
+                          carry, config)
+
+
+def _fgsm_step(flow_fn, image1, image2, target, flow_pred_init, carry, cfg):
     nw1, nw2 = carry
-    with torch.enable_grad():
+    with profiling.span("fgsm.objective"), torch.enable_grad():
         a = nw1.detach().requires_grad_(True)
         b = nw2.detach().requires_grad_(True)
         loss = _per_pair(lambda f, t: get_loss(cfg.loss, f, t),
                          flow_fn(a, b), target)
         g1, g2 = torch.autograd.grad(loss.sum(), (a, b))
-    if cfg.joint_perturbation:
-        s1 = s2 = torch.sign(0.5 * (g1 + g2))
-    else:
-        s1, s2 = torch.sign(g1), torch.sign(g2)
-    nw1 = clip01(nw1 - cfg.epsilon * s1)
-    nw2 = clip01(nw2 - cfg.epsilon * s2)
+    with profiling.span("fgsm.update"):
+        if cfg.joint_perturbation:
+            s1 = s2 = torch.sign(0.5 * (g1 + g2))
+        else:
+            s1, s2 = torch.sign(g1), torch.sign(g2)
+        nw1 = clip01(nw1 - cfg.epsilon * s1)
+        nw2 = clip01(nw2 - cfg.epsilon * s2)
 
-    with torch.no_grad():
-        d1, d2 = nw1 - image1, nw2 - image2
-        flow_pred = flow_fn(nw1, nw2)
-        metrics = FGSMMetrics(
-            loss=loss.detach(),
-            aee_adv_tgt=_per_pair(avg_epe, flow_pred, target),
-            aee_adv_pred=_per_pair(avg_epe, flow_pred, flow_pred_init),
-            l2_delta1=_per_pair(two_norm_avg, d1),
-            l2_delta2=_per_pair(two_norm_avg, d2),
-            l2_delta12=_per_pair(two_norm_avg_delta, d1, d2),
-        )
+        with torch.no_grad():
+            d1, d2 = nw1 - image1, nw2 - image2
+            flow_pred = flow_fn(nw1, nw2)
+            metrics = FGSMMetrics(
+                loss=loss.detach(),
+                aee_adv_tgt=_per_pair(avg_epe, flow_pred, target),
+                aee_adv_pred=_per_pair(avg_epe, flow_pred, flow_pred_init),
+                l2_delta1=_per_pair(two_norm_avg, d1),
+                l2_delta2=_per_pair(two_norm_avg, d2),
+                l2_delta12=_per_pair(two_norm_avg_delta, d1, d2),
+            )
     return (nw1, nw2), (metrics, flow_pred)
 
 

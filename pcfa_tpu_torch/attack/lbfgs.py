@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pcfa_tpu_torch.utils import profiling
+
 # columns per chunk when the history is multiplied in float32, which
 # bounds the float32 temporaries to B·m·_CHUNK elements; each chunk's
 # reduction is cut into blocks of _SPLIT columns that form a batch axis
@@ -205,6 +207,14 @@ def lbfgs_iteration(
     entry)."""
     if direction not in ("two_loop", "compact"):
         raise ValueError(f"unknown L-BFGS direction {direction!r}")
+    profiling.count("lbfgs.iterations")
+    with profiling.span("lbfgs.iteration"):
+        return _iteration(value_and_grad_fn, state, pos, lr, tolerance_grad,
+                          tolerance_change, direction)
+
+
+def _iteration(value_and_grad_fn, state, pos, lr, tolerance_grad,
+               tolerance_change, direction):
     B, m, _ = state.y_buf.shape
     ar = torch.arange(B, device=state.x.device)
     loss, grad = value_and_grad_fn(state.x)
@@ -220,76 +230,83 @@ def lbfgs_iteration(
 
     first = state.n_iter == 0
 
-    # --- history push -------------------------------------------------------
-    y = grad - state.prev_grad
-    s = state.d * state.t[:, None]
-    ys = (y * s).sum(1)
-    push = ~done & ~first & (ys > 1e-10)
-    idx = state.count % m
-    hdt = state.y_buf.dtype
-    y_buf, s_buf = state.y_buf, state.s_buf
-    y_buf[ar, idx] = torch.where(push[:, None], y.to(hdt), y_buf[ar, idx])
-    s_buf[ar, idx] = torch.where(push[:, None], s.to(hdt), s_buf[ar, idx])
-    ro_buf = state.ro_buf.clone()
-    ro_buf[ar, idx] = torch.where(push, 1.0 / ys, ro_buf[ar, idx])
-    count = torch.where(push, state.count + 1, state.count)
-    h_diag = torch.where(push, ys / (y * y).sum(1), state.h_diag)
+    with profiling.span("lbfgs.push"):
+        y = grad - state.prev_grad
+        s = state.d * state.t[:, None]
+        ys = (y * s).sum(1)
+        push = ~done & ~first & (ys > 1e-10)
+        idx = state.count % m
+        hdt = state.y_buf.dtype
+        y_buf, s_buf = state.y_buf, state.s_buf
+        y_buf[ar, idx] = torch.where(push[:, None], y.to(hdt),
+                                     y_buf[ar, idx])
+        s_buf[ar, idx] = torch.where(push[:, None], s.to(hdt),
+                                     s_buf[ar, idx])
+        ro_buf = state.ro_buf.clone()
+        ro_buf[ar, idx] = torch.where(push, 1.0 / ys, ro_buf[ar, idx])
+        count = torch.where(push, state.count + 1, state.count)
+        h_diag = torch.where(push, ys / (y * y).sum(1), state.h_diag)
 
-    # --- direction ----------------------------------------------------------
-    gram_sy, gram_yy = state.gram_sy, state.gram_yy
-    if direction == "compact":
-        # one pass per buffer gives Sᵀg, Yᵀg and the new Gram row/column
-        # (S·y_new, Y·y_new, Y·s_new); columns rounded to the history dtype
-        rhs = torch.stack([grad, y, s], dim=2).to(hdt)      # (B, n, 3)
-        prods_s = _hist_products(s_buf, rhs)                 # (B, m, 3)
-        prods_y = _hist_products(y_buf, rhs)
-        sg, yg = prods_s[..., 0], prods_y[..., 0]
-        p = push[:, None]
-        gram_sy, gram_yy = gram_sy.clone(), gram_yy.clone()
-        gram_sy[ar, :, idx] = torch.where(p, prods_s[..., 1],
-                                          gram_sy[ar, :, idx])
-        gram_sy[ar, idx, :] = torch.where(p, prods_y[..., 2],
-                                          gram_sy[ar, idx, :])
-        gram_yy[ar, :, idx] = torch.where(p, prods_y[..., 1],
-                                          gram_yy[ar, :, idx])
-        gram_yy[ar, idx, :] = torch.where(p, prods_y[..., 1],
-                                          gram_yy[ar, idx, :])
-        d_hist = _compact_solve(grad, y_buf, s_buf, gram_sy, gram_yy, sg, yg,
-                                h_diag, count)
-    else:
-        d_hist = _two_loop(grad, y_buf, s_buf, ro_buf, h_diag, count)
-    d = torch.where(first[:, None], -grad, d_hist)
-    t0 = torch.clamp(1.0 / grad.abs().sum(1), max=1.0) * lr
-    t = torch.where(first, t0, torch.full_like(t0, lr))
+    with profiling.span("lbfgs.direction"):
+        gram_sy, gram_yy = state.gram_sy, state.gram_yy
+        if direction == "compact":
+            # one pass per buffer gives Sᵀg, Yᵀg and the new Gram row/column
+            # (S·y_new, Y·y_new, Y·s_new); columns rounded to the history
+            # dtype
+            rhs = torch.stack([grad, y, s], dim=2).to(hdt)     # (B, n, 3)
+            prods_s = _hist_products(s_buf, rhs)                # (B, m, 3)
+            prods_y = _hist_products(y_buf, rhs)
+            sg, yg = prods_s[..., 0], prods_y[..., 0]
+            p = push[:, None]
+            gram_sy, gram_yy = gram_sy.clone(), gram_yy.clone()
+            gram_sy[ar, :, idx] = torch.where(p, prods_s[..., 1],
+                                              gram_sy[ar, :, idx])
+            gram_sy[ar, idx, :] = torch.where(p, prods_y[..., 2],
+                                              gram_sy[ar, idx, :])
+            gram_yy[ar, :, idx] = torch.where(p, prods_y[..., 1],
+                                              gram_yy[ar, :, idx])
+            gram_yy[ar, idx, :] = torch.where(p, prods_y[..., 1],
+                                              gram_yy[ar, idx, :])
+            d_hist = _compact_solve(grad, y_buf, s_buf, gram_sy, gram_yy, sg,
+                                    yg, h_diag, count)
+        else:
+            d_hist = _two_loop(grad, y_buf, s_buf, ro_buf, h_diag, count)
+        d = torch.where(first[:, None], -grad, d_hist)
 
-    gtd = (grad * d).sum(1)
-    pre_break = gtd > -tolerance_change
-    apply = ~done & ~pre_break
-    x_new = torch.where(apply[:, None], state.x + t[:, None] * d, state.x)
-    last_step_max = torch.where(apply, (t[:, None] * d).abs().amax(dim=1),
-                                float("inf"))
+    with profiling.span("lbfgs.update"):
+        t0 = torch.clamp(1.0 / grad.abs().sum(1), max=1.0) * lr
+        t = torch.where(first, t0, torch.full_like(t0, lr))
 
-    def sel(new, old):
-        mask = done.reshape(-1, *([1] * (new.dim() - 1)))
-        return torch.where(mask, old, new)
+        gtd = (grad * d).sum(1)
+        pre_break = gtd > -tolerance_change
+        apply = ~done & ~pre_break
+        x_new = torch.where(apply[:, None], state.x + t[:, None] * d,
+                            state.x)
+        last_step_max = torch.where(apply,
+                                    (t[:, None] * d).abs().amax(dim=1),
+                                    float("inf"))
 
-    new_state = LBFGSState(
-        x=x_new,
-        d=sel(d, state.d),
-        t=sel(t, state.t),
-        prev_grad=sel(grad, state.prev_grad),
-        prev_loss=sel(loss, state.prev_loss),
-        y_buf=y_buf,  # pushes already gated on ~done
-        s_buf=s_buf,
-        ro_buf=ro_buf,
-        h_diag=sel(h_diag, state.h_diag),
-        count=sel(count, state.count),
-        n_iter=sel(state.n_iter + 1, state.n_iter),
-        done=done | pre_break,
-        last_step_max=sel(last_step_max, state.last_step_max),
-        gram_sy=gram_sy,  # updates already gated on push
-        gram_yy=gram_yy,
-    )
+        def sel(new, old):
+            mask = done.reshape(-1, *([1] * (new.dim() - 1)))
+            return torch.where(mask, old, new)
+
+        new_state = LBFGSState(
+            x=x_new,
+            d=sel(d, state.d),
+            t=sel(t, state.t),
+            prev_grad=sel(grad, state.prev_grad),
+            prev_loss=sel(loss, state.prev_loss),
+            y_buf=y_buf,  # pushes already gated on ~done
+            s_buf=s_buf,
+            ro_buf=ro_buf,
+            h_diag=sel(h_diag, state.h_diag),
+            count=sel(count, state.count),
+            n_iter=sel(state.n_iter + 1, state.n_iter),
+            done=done | pre_break,
+            last_step_max=sel(last_step_max, state.last_step_max),
+            gram_sy=gram_sy,  # updates already gated on push
+            gram_yy=gram_yy,
+        )
     return new_state, loss
 
 

@@ -35,6 +35,7 @@ from pcfa_tpu_torch.attack.losses import (
     two_norm_avg,
     two_norm_avg_delta,
 )
+from pcfa_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +156,7 @@ def _make_problem(flow_fn, image1, image2, target, cfg: PCFAConfig):
                                      cfg.loss)
 
     def value_and_grad(x):
-        with torch.enable_grad():
+        with profiling.span("pcfa.objective"), torch.enable_grad():
             x = x.detach().requires_grad_(True)
             flow = flow_fn(*network_inputs(x))
             loss = _per_pair(pair_loss, flow, target, *deltas(x))
@@ -169,6 +170,11 @@ def pcfa_init(flow_fn, image1, image2, config: PCFAConfig,
               device: str | torch.device = "cuda"
               ) -> tuple[PCFAState, torch.Tensor]:
     """(initial state, flow_pred_init) for B pairs (B, H, W, 3)."""
+    with profiling.span("pcfa.init"):
+        return _pcfa_init(flow_fn, image1, image2, config, device)
+
+
+def _pcfa_init(flow_fn, image1, image2, config, device):
     dev = resolve_device(device)
     image1, image2 = image1.to(dev), image2.to(dev)
     cfg = config
@@ -195,7 +201,13 @@ def pcfa_outer_step(flow_fn, image1, image2, target, flow_pred_init,
                     ) -> tuple[PCFAState, PCFAMetrics, torch.Tensor]:
     """One outer step: a `max_iter` L-BFGS segment, flow re-prediction,
     metrics and the best-δ update, per pair."""
-    cfg = config
+    with profiling.span("pcfa.outer_step"):
+        return _pcfa_outer_step(flow_fn, image1, image2, target,
+                                flow_pred_init, state, config)
+
+
+def _pcfa_outer_step(flow_fn, image1, image2, target, flow_pred_init, state,
+                     cfg):
     _, network_inputs, deltas, value_and_grad = _make_problem(
         flow_fn, image1, image2, target, cfg)
     opt, best = state
@@ -203,7 +215,7 @@ def pcfa_outer_step(flow_fn, image1, image2, target, flow_pred_init,
         opt, seg_loss = lbfgs_iteration(value_and_grad, opt, pos, lr=cfg.lr,
                                         direction=cfg.lbfgs_direction)
 
-    with torch.no_grad():
+    with profiling.span("pcfa.bookkeeping"), torch.no_grad():
         flow_pred = flow_fn(*network_inputs(opt.x))
         d1, d2 = deltas(opt.x)
         aee_adv_tgt = _per_pair(avg_epe, flow_pred, target)

@@ -40,6 +40,7 @@ from pcfa_tpu_torch.models.layers import BasicEncoder
 from pcfa_tpu_torch.ops.correlation import make_corr_lookup, resolve_corr_impl
 from pcfa_tpu_torch.ops.warp import coords_grid
 from pcfa_tpu_torch.parallel.mesh import Mesh, gather_rows, reduce_grad
+from pcfa_tpu_torch.utils import profiling
 
 # the matrix products and convolutions 'dots' keeps: everything else in
 # an iteration is recomputed in the backward
@@ -245,38 +246,48 @@ class RAFT(nn.Module):
         return mesh
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor):
+        """Spans (`utils/profiling.py`): `raft.encoders` (fnet, then cnet
+        and its split), `raft.pyramid` (the corr path's set-up),
+        `raft.refine` and `raft.upsample`; each forward counts as
+        `raft.corr_impl.<the resolved path>`."""
         x1 = (2.0 * image1 - 1.0).permute(0, 3, 1, 2)
         x2 = (2.0 * image2 - 1.0).permute(0, 3, 1, 2)
 
         mesh = self._space_mesh()
-        fmaps = self.fnet(torch.cat([x1, x2], dim=0)).permute(0, 2, 3, 1)
-        if mesh is not None:
-            fmaps = reduce_grad(fmaps, mesh)
-        fmap1, fmap2 = fmaps.chunk(2, dim=0)
-        impl = resolve_corr_impl(self.corr_impl, fmap1.shape, fmap2.shape,
-                                 self.corr_levels, fmap1.dtype,
-                                 self.spatial_shards)
-        if mesh is None:
-            lookup = make_corr_lookup(impl, fmap1, fmap2, self.corr_levels,
-                                      self.corr_radius, self.corr_block)
-        else:
-            if impl == "hybrid":
-                raise NotImplementedError(
-                    "corr_impl='hybrid' is not supported under spatial "
-                    "sharding (use 'materialized' or 'fused')")
-            r0, r1 = mesh.rows(fmap1.shape[1])
-            rows = make_corr_lookup(impl, fmap1[:, r0:r1], fmap2,
-                                    self.corr_levels, self.corr_radius,
-                                    self.corr_block)
+        with profiling.span("raft.encoders"):
+            fmaps = self.fnet(torch.cat([x1, x2], dim=0)).permute(0, 2, 3, 1)
+            if mesh is not None:
+                fmaps = reduce_grad(fmaps, mesh)
+            fmap1, fmap2 = fmaps.chunk(2, dim=0)
+        with profiling.span("raft.pyramid"):
+            impl = resolve_corr_impl(self.corr_impl, fmap1.shape,
+                                     fmap2.shape, self.corr_levels,
+                                     fmap1.dtype, self.spatial_shards)
+            profiling.count(f"raft.corr_impl.{impl}")
+            if mesh is None:
+                lookup = make_corr_lookup(impl, fmap1, fmap2,
+                                          self.corr_levels, self.corr_radius,
+                                          self.corr_block)
+            else:
+                if impl == "hybrid":
+                    raise NotImplementedError(
+                        "corr_impl='hybrid' is not supported under spatial "
+                        "sharding (use 'materialized' or 'fused')")
+                r0, r1 = mesh.rows(fmap1.shape[1])
+                rows = make_corr_lookup(impl, fmap1[:, r0:r1], fmap2,
+                                        self.corr_levels, self.corr_radius,
+                                        self.corr_block)
 
-            def lookup(c):
-                return gather_rows(rows(c[:, r0:r1]), mesh, 1)
+                def lookup(c):
+                    return gather_rows(rows(c[:, r0:r1]), mesh, 1)
 
-        cnet = self.cnet(x1)
-        net, inp = torch.split(cnet, [self.hidden_dim,
-                                      cnet.shape[1] - self.hidden_dim], dim=1)
-        net = torch.tanh(net)
-        inp = torch.relu(inp)
+        with profiling.span("raft.encoders"):
+            cnet = self.cnet(x1)
+            net, inp = torch.split(
+                cnet, [self.hidden_dim, cnet.shape[1] - self.hidden_dim],
+                dim=1)
+            net = torch.tanh(net)
+            inp = torch.relu(inp)
         context = self.update_context(inp, mesh)
         gates = self.update_block.gru.gate_weights()
 
@@ -290,10 +301,12 @@ class RAFT(nn.Module):
                                                 *context, gates=gates)
             return net, coords1 + delta_flow.permute(0, 2, 3, 1)
 
-        net, coords1 = refine(step, net, coords0, self.iters, self.remat,
-                              self.remat_policy)
-        up_mask = 0.25 * self.update_block.mask(net)
-
-        flow_lr = coords1 - coords0
-        flow_up = upsample_flow_convex(flow_lr, up_mask.permute(0, 2, 3, 1))
+        with profiling.span("raft.refine"):
+            net, coords1 = refine(step, net, coords0, self.iters, self.remat,
+                                  self.remat_policy)
+        with profiling.span("raft.upsample"):
+            up_mask = 0.25 * self.update_block.mask(net)
+            flow_lr = coords1 - coords0
+            flow_up = upsample_flow_convex(flow_lr,
+                                           up_mask.permute(0, 2, 3, 1))
         return flow_lr, flow_up

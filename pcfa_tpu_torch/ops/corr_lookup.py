@@ -44,6 +44,7 @@ import torch
 
 from pcfa_tpu_torch.ops import _build
 from pcfa_tpu_torch.ops.warp import bilinear_sampler
+from pcfa_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_RADIUS = 7
@@ -243,14 +244,18 @@ def pyramid_with_grad(levels: list[torch.Tensor]) -> Pyramid:
 
 
 class _CorrWindow(torch.autograd.Function):
+    """The lookup under autograd; spans `op.corr_lookup` (forward) and
+    `op.corr_lookup.bwd` (backward, on autograd's thread)."""
+
     @staticmethod
     def forward(ctx, coords, radius, acc, *levels):
         ctx.radius, ctx.acc = radius, acc
         ctx.like = [(t.shape, t.dtype, t.device) for t in levels]
         ctx.save_for_backward(coords)
-        if coords.device.type == "cuda":
-            return corr_window_fwd(list(levels), coords, radius)
-        return corr_window_plain(list(levels), coords, radius)
+        with profiling.span("op.corr_lookup"):
+            if coords.device.type == "cuda":
+                return corr_window_fwd(list(levels), coords, radius)
+            return corr_window_plain(list(levels), coords, radius)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -258,12 +263,14 @@ class _CorrWindow(torch.autograd.Function):
         none = (None,) * (3 + len(ctx.like))
         if not any(ctx.needs_input_grad[3:]):
             return none
-        dmaps = (ctx.acc.take(ctx.like) if ctx.acc is not None
-                 else _zeros(ctx.like))
-        if coords.device.type == "cuda":
-            corr_window_bwd(grad_out, dmaps, coords, ctx.radius)
-        else:
-            corr_window_bwd_acc_plain(grad_out, dmaps, coords, ctx.radius)
+        with profiling.span("op.corr_lookup.bwd"):
+            dmaps = (ctx.acc.take(ctx.like) if ctx.acc is not None
+                     else _zeros(ctx.like))
+            if coords.device.type == "cuda":
+                corr_window_bwd(grad_out, dmaps, coords, ctx.radius)
+            else:
+                corr_window_bwd_acc_plain(grad_out, dmaps, coords,
+                                          ctx.radius)
         return none if ctx.acc is not None else (None, None, None, *dmaps)
 
 

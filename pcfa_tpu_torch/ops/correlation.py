@@ -51,9 +51,8 @@ def resolve_corr_impl(impl: str, fmap1_shape: tuple, fmap2_shape: tuple,
         for _ in range(num_levels):
             pyr_elems += h * w
             h, w = max(h // 2, 1), max(w // 2, 1)
-        itemsize = torch.empty((), dtype=dtype).element_size()
         est = (2 * B * (H1 * W1 // max(spatial_shards, 1)) * pyr_elems
-               * itemsize)
+               * dtype.itemsize)
         return "materialized" if est <= corr_hbm_budget_bytes() else "fused"
     if impl not in CORR_IMPLS:
         raise ValueError(f"corr_impl={impl!r}: expected 'auto' or one of "

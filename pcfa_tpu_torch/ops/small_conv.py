@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from pcfa_tpu_torch.ops import _build
+from pcfa_tpu_torch.utils import profiling
 
 _ACTS = {None: 0, "relu": 1, "leaky": 2}
 _P = ctypes.c_void_p
@@ -417,9 +418,13 @@ small_conv_dx.launches = 0
 
 
 class _SmallConv(torch.autograd.Function):
+    """The kernels under autograd; spans `op.small_conv` (forward) and
+    `op.small_conv.dx` (backward, on autograd's thread)."""
+
     @staticmethod
     def forward(ctx, x, weight, bias, stride, act):
-        out = small_conv_fwd(x, weight, bias, stride, act)
+        with profiling.span("op.small_conv"):
+            out = small_conv_fwd(x, weight, bias, stride, act)
         ctx.stride, ctx.act = stride, act
         ctx.x_shape = tuple(x.shape)
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
@@ -430,17 +435,18 @@ class _SmallConv(torch.autograd.Function):
     def backward(ctx, g):
         x, weight, out = ctx.saved_tensors
         dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = small_conv_dx(g, weight, ctx.x_shape, ctx.stride, out,
-                               ctx.act)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            g = _act_grad(g, out, ctx.act)
-        if ctx.needs_input_grad[1]:
-            k = weight.shape[-1]
-            dw = torch.nn.grad.conv2d_weight(x, weight.shape, g, ctx.stride,
-                                             k // 2)
-        if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 2, 3))
+        with profiling.span("op.small_conv.dx"):
+            if ctx.needs_input_grad[0]:
+                dx = small_conv_dx(g, weight, ctx.x_shape, ctx.stride, out,
+                                   ctx.act)
+            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+                g = _act_grad(g, out, ctx.act)
+            if ctx.needs_input_grad[1]:
+                k = weight.shape[-1]
+                dw = torch.nn.grad.conv2d_weight(x, weight.shape, g,
+                                                 ctx.stride, k // 2)
+            if ctx.needs_input_grad[2]:
+                db = g.sum(dim=(0, 2, 3))
         return dx, dw, db, None, None
 
 

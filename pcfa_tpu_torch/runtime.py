@@ -30,6 +30,7 @@ from pcfa_tpu_torch._device import resolve_device
 from pcfa_tpu_torch.config import compute_dtype
 from pcfa_tpu_torch.models import make_model
 from pcfa_tpu_torch.models.convert import load_torch_state
+from pcfa_tpu_torch.utils import profiling
 from pcfa_tpu_torch.utils.padder import InputPadder
 
 #: default checkpoints of the ported networks (`pcfa_tpu/runtime.py`):
@@ -129,7 +130,9 @@ def make_flow_fn(loaded: LoadedModel, image_hw: tuple[int, int],
                  pad_mode: str = "sintel") -> tuple[InputPadder, Callable]:
     """(padder, flow_fn). PCFA_COMPUTE_DTYPE=bfloat16 runs the network's
     weights and inputs in bf16 (a cast copy of the module) while coords,
-    flow and the returned `flow_up` stay float32."""
+    flow and the returned `flow_up` stay float32. Each call is the span
+    `flow` and counts as `flow.closures` where it records a gradient to
+    its inputs, else as `flow.forwards` (`utils/profiling.py`)."""
     H, W = image_hw
     padder = InputPadder((H, W, 3), divisor=loaded.spec.pad_divisor,
                          mode=pad_mode)
@@ -139,11 +142,15 @@ def make_flow_fn(loaded: LoadedModel, image_hw: tuple[int, int],
         module = copy.deepcopy(module).to(cdtype)
 
     def flow_fn(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        if cdtype is not None:
-            x1, x2 = x1.to(cdtype), x2.to(cdtype)
-        out = module(x1, x2)
-        if isinstance(out, tuple):
-            out = out[-1]
-        return padder.unpad(out.to(torch.float32))
+        grad = torch.is_grad_enabled() and (x1.requires_grad
+                                            or x2.requires_grad)
+        profiling.count("flow.closures" if grad else "flow.forwards")
+        with profiling.span("flow"):
+            if cdtype is not None:
+                x1, x2 = x1.to(cdtype), x2.to(cdtype)
+            out = module(x1, x2)
+            if isinstance(out, tuple):
+                out = out[-1]
+            return padder.unpad(out.to(torch.float32))
 
     return padder, flow_fn

@@ -1,7 +1,22 @@
 """Tracing and timing hooks (`pcfa_tpu/utils/profiling.py`).
 
 * `trace(logdir)`: `torch.profiler` over the block (CPU, and CUDA when the
-  card is there), written as a Chrome trace into `logdir`.
+  card is there), written as a Chrome trace into `logdir`. The trace shows
+  the program's own spans (`span`) around the attack's parts, the networks'
+  stages and the kernels, beside the operators and device work under them.
+* `span(name)`: a `torch.profiler.record_function` range named `name`
+  while a torch profiler runs (`trace`, or any `torch.profiler.profile`),
+  else one shared context that does nothing: one flag check, no
+  allocation. There is no other switch: spans are on exactly while someone
+  profiles. Off, a span's with-block costs about 0.5 µs on a CPU core; on,
+  about 21 µs of host time beside an H100 (one tiny launch per span).
+* `count(name, n)` and `counters()`: integers on the host, counted whether
+  or not a profiler runs (no device work, no synchronisation), and a
+  snapshot of them. The names in use: `flow.closures` and `flow.forwards`
+  (calls of `runtime.make_flow_fn`'s flow function with and without
+  gradient recording), `lbfgs.iterations` (`lbfgs_iteration` calls) and
+  `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation path
+  `resolve_corr_impl` chose).
 * `debug_nans()`: opt-in anomaly detection (`torch.autograd.
   set_detect_anomaly`), which raises where a backward produces NaN.
 * `fence()` and `StepTimer`: wall-clock step timing that waits for the
@@ -17,6 +32,31 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
+#: what `span` returns while no profiler runs
+_NO_SPAN = contextlib.nullcontext()
+_COUNTERS: dict[str, int] = {}
+
+
+def span(name: str):
+    """A context that marks its block as the program span `name` in a
+    profile: `record_function(name)` while a torch profiler runs, else the
+    shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the host counter `name`."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of the counters: {name: count since the process began}."""
+    return dict(_COUNTERS)
 
 
 @contextlib.contextmanager
