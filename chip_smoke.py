@@ -30,9 +30,14 @@ script then exits non-zero):
    buffers the caller owns: it is held against the plain accumulating
    backward over 4 launches, and a `corr_lookup_closure` row checks and
    times what one RAFT closure does with the lookup (the pyramid, 12
-   lookups, their backward through autograd). Each row says how its kernel and
-   library times were taken: `loop` (10 launches back to back) or `graph`
-   (a CUDA-graph replay: device time, warm L2, the loop time beside it),
+   lookups, their backward through autograd). The compact L-BFGS
+   direction's two passes over the history (`ops/lbfgs_hist.py`) are held
+   at each main path's shape and history dtype with a full ring (RAFT's
+   for 2 and 16 pairs, SpyNet's, FlowNet2's, PWCNet's float32), and every
+   main path must launch both once per L-BFGS iteration. Each row says how its
+   kernel and library times were taken: `loop` (10 launches back to back)
+   or `graph` (a CUDA-graph replay: device time, warm L2, the loop time
+   beside it),
    which every kernel row of the lookup, PWCNet's convs, the patch
    correlation and the warp's backward uses;
 3. parity: a random-init RAFT (seed 0, flow-head conv2 damped ×0.01),
@@ -228,6 +233,18 @@ def wrapper(name: str):
     _, mod, attr, _, _ = next(k for k in KERNELS if k[0] == name)
     return getattr(importlib.import_module(f"pcfa_tpu_torch.ops.{mod}"),
                    attr)
+
+
+def hist_wrappers() -> dict:
+    """{name: launching wrapper} of the compact L-BFGS direction's kernels
+    (`ops/lbfgs_hist.py`), which every main path launches once each per
+    iteration. They replace no TPU kernel (the JAX package leaves the
+    products to XLA), so `KERNELS` and its summary line leave them out;
+    `kernels_lbfgs_hist` prints their rows."""
+    from pcfa_tpu_torch.ops import lbfgs_hist as lh
+
+    return {"lbfgs_hist_products": lh.hist_products_cuda,
+            "lbfgs_hist_combine": lh.hist_combine_cuda}
 
 
 @contextlib.contextmanager
@@ -431,6 +448,7 @@ def phase_kernels():
     kernels_flownet2_conv(rows)
     kernels_local_corr(rows)
     kernels_warp_bwd(rows)
+    kernels_lbfgs_hist(rows)
     torch.cuda.empty_cache()
     return rows
 
@@ -1029,6 +1047,73 @@ def kernels_warp_bwd(rows):
                 f"{sums['bound_ms']:.4f} ms [{card_line()}]")
 
 
+# the compact L-BFGS direction's history as each main path gives it:
+# (pairs, padded H, W, history dtype, path); RAFT, GMA and RAFT-small pad
+# to ÷8, SpyNet, FlowNet2 and PWCNet to ÷64; PWCNet's history is float32
+HIST_CASES = [(PAIRS, 376, 1248, torch.bfloat16, "RAFT"),
+              (16, 376, 1248, torch.bfloat16, "RAFT b16"),
+              (PAIRS, 384, 1280, torch.bfloat16, "SpyNet"),
+              (FN2_PAIRS, 384, 1280, torch.bfloat16, "FlowNet2"),
+              (PWC_PAIRS, 384, 1280, torch.float32, "PWCNet")]
+
+
+def kernels_lbfgs_hist(rows):
+    """The compact L-BFGS direction's two passes (`ops/lbfgs_hist.py`) at
+    each main path's shape and history dtype (`HIST_CASES`: n = 2·3·H·W,
+    history 100, the ring full and wrapped: count 137), against the plain
+    chunked versions on the same inputs (1e-4 of the largest plain value:
+    float32 sums in another order), graph-timed (each pass is
+    milliseconds: the L2 holds none of the ring). Library: `torch.bmm` on
+    the ring in its dtype (S with [g, y] and Y with [g, y, s]; the two
+    coefficient rows times S and Y), as a yardstick only. Bound: the ring
+    read once, g, y, s (products) or g and d (combine) in float32 once."""
+    from pcfa_tpu_torch.ops import lbfgs_hist as lh
+
+    row = row_adder(rows)
+    m = 100
+    log("# L-BFGS history passes vs plain (history 100, full ring)")
+    for pairs, h, w, hdt, path in HIST_CASES:
+        n = 2 * 3 * h * w
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        S, Y = (torch.randn((pairs, m, n), generator=gen, device="cuda",
+                            dtype=hdt) for _ in "SY")
+        vecs = [torch.randn((pairs, n), generator=gen, device="cuda")
+                for _ in "gys"]
+        top, bot = (torch.randn((pairs, m), generator=gen, device="cuda")
+                    for _ in "tb")
+        gamma = torch.rand(pairs, generator=gen, device="cuda") + 0.5
+        cnt = torch.full((pairs,), 137, dtype=torch.int64, device="cuda")
+        reps = 5 if pairs > PAIRS else 20
+        shape = f"{pairs}x{m}x{n}"
+        ring = 2 * pairs * m * n * S.element_size()
+
+        err = check_close(f"lbfgs products {path}",
+                          lh.hist_products(S, Y, *vecs, cnt),
+                          lh.hist_products_plain(S, Y, *vecs, cnt), 1e-4)
+        rhs = torch.stack(vecs, 2).to(hdt)
+        kernel = lambda: lh.hist_products(S, Y, *vecs, cnt)  # noqa: E731
+        row("lbfgs_hist_products", hdt, shape, err, graph_ms(kernel, reps),
+            graph_ms(lambda: lh.hist_products_plain(S, Y, *vecs, cnt), reps),
+            graph_ms(lambda: (torch.bmm(S, rhs[..., :2]), torch.bmm(Y, rhs)),
+                     reps),
+            ring + 3 * pairs * n * 4 + pairs * 5 * m * 4,
+            10 * pairs * m * n, path, "graph", cuda_ms(kernel, 3, 1))
+        del rhs
+
+        args = (S, Y, vecs[0], top, bot, gamma, cnt)
+        err = check_close(f"lbfgs combine {path}", lh.hist_combine(*args),
+                          lh.hist_combine_plain(*args), 1e-4)
+        cs, cy = (c.to(hdt)[:, None] for c in (top, bot))
+        kernel = lambda: lh.hist_combine(*args)  # noqa: E731
+        row("lbfgs_hist_combine", hdt, shape, err, graph_ms(kernel, reps),
+            graph_ms(lambda: lh.hist_combine_plain(*args), reps),
+            graph_ms(lambda: (torch.bmm(cs, S), torch.bmm(cy, Y)), reps),
+            ring + 2 * pairs * n * 4 + 2 * pairs * m * 4,
+            4 * pairs * m * n, path, "graph", cuda_ms(kernel, 3, 1))
+        del S, Y, vecs, args
+        torch.cuda.empty_cache()
+
+
 def compare_warp():
     """The warp backward in a form any tree of the port runs, for a
     parent-vs-change comparison in one call (copy this script into the
@@ -1328,6 +1413,7 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
     from pcfa_tpu_torch import config
     from pcfa_tpu_torch.attack import pcfa
     from pcfa_tpu_torch.runtime import load_model, make_flow_fn
+    from pcfa_tpu_torch.utils import profiling
 
     cfg = pcfa.PCFAConfig(
         steps=2, max_iter=2, delta_bound=0.005, loss="aee", target="zero",
@@ -1347,9 +1433,11 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
     target = torch.zeros((pairs, *KITTI_HW, 2), device="cuda")
 
     host_probe()
-    wrappers = {name: wrapper(name) for name, *_ in KERNELS}
+    hist = hist_wrappers() if cfg.lbfgs_direction == "compact" else {}
+    wrappers = {name: wrapper(name) for name, *_ in KERNELS} | hist
     for w in wrappers.values():
         w.launches = 0
+    c0 = profiling.counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1364,6 +1452,9 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
         t_steps.append(time.perf_counter() - t)
     t_run = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
+    c1 = profiling.counters()
+    iters, dirs = (c1.get(k, 0) - c0.get(k, 0)
+                   for k in ("lbfgs.iterations", "lbfgs.direction.kernel"))
     peak = torch.cuda.max_memory_allocated()
 
     for name, v in metrics._asdict().items():
@@ -1379,6 +1470,12 @@ def phase_main_path(net: str, pairs: int, profile: bool = False) -> dict:
     missing = [k for k in PATH_KERNELS[net] if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path {net} never launched {missing}")
+    # every compact direction goes through both history kernels
+    short = {k: launches[k] for k in hist if launches[k] != iters}
+    if hist and (iters == 0 or short or dirs != iters):
+        raise AssertionError(f"main path {net}: {iters} L-BFGS iterations, "
+                             f"{dirs} kernel directions, history kernel "
+                             f"launches {short}")
 
     # per-closure and forward times, measured after the run
     _, _, _, value_and_grad = pcfa._make_problem(flow_fn, image1, image2,

@@ -13,7 +13,10 @@ resets at `pos == 0`.
 Directions: 'two_loop' (the recursion torch runs) or 'compact'
 (Byrd–Nocedal–Schnabel, with the Gram matrices SᵀY and YᵀY maintained
 incrementally, one row and column per push). The history ring buffers may
-be stored in bfloat16; products with them accumulate in float32.
+be stored in bfloat16; products with them accumulate in float32. The
+compact direction's two passes over the ring (the products, the final
+combination) are `ops/lbfgs_hist.py`: CUDA kernels on the card, plain
+versions on the CPU.
 
 The ring buffers (the optimizer's largest tensors, B·m·n each) are updated
 in place; every other field is a new tensor.
@@ -25,15 +28,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pcfa_tpu_torch.ops import lbfgs_hist
 from pcfa_tpu_torch.utils import profiling
-
-# columns per chunk when the history is multiplied in float32, which
-# bounds the float32 temporaries to B·m·_CHUNK elements; each chunk's
-# reduction is cut into blocks of _SPLIT columns that form a batch axis
-# (split-K): a product whose reduction runs over millions of columns as one
-# matrix product gets only a handful of thread blocks on a GPU
-_CHUNK = 1 << 18
-_SPLIT = 1 << 12
 
 
 class LBFGSState(NamedTuple):
@@ -83,40 +79,6 @@ def lbfgs_init(x0: torch.Tensor, history_size: int = 100,
     )
 
 
-def _hist_products(buf: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """buf (B, m, n) @ rhs (B, n, k) → (B, m, k) in float32 (float64 for a
-    float64 history), accumulated in that dtype: per chunk of columns, one
-    copy to it laid out as (B, blocks, m, _SPLIT), a batched product per
-    block, and a sum over the blocks."""
-    B, m, n = buf.shape
-    k = rhs.shape[-1]
-    f32 = torch.promote_types(buf.dtype, torch.float32)
-    out = torch.zeros((B, m, k), dtype=f32, device=buf.device)
-    for i in range(0, n, _CHUNK):
-        end = min(i + _CHUNK, n)
-        blocks = (end - i) // _SPLIT
-        j = i + blocks * _SPLIT
-        if blocks:
-            a = buf[:, :, i:j].reshape(B, m, blocks, _SPLIT).transpose(1, 2)
-            a = a.to(f32, memory_format=torch.contiguous_format)
-            r = rhs[:, i:j].reshape(B, blocks, _SPLIT, k).to(f32)
-            out += torch.matmul(a, r).sum(1)
-        if j < end:
-            out += torch.bmm(buf[:, :, j:end].to(f32), rhs[:, j:end].to(f32))
-    return out
-
-
-def _hist_combine(coef: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
-    """Σᵢ coef[:, i]·buf[:, i] → (B, n) in coef's dtype (float32, or
-    float64 in a float64 problem), with the buffer cast to it chunk by
-    chunk."""
-    c = coef[:, None, :]
-    if buf.dtype == coef.dtype:
-        return torch.bmm(c, buf)[:, 0]
-    return torch.cat([torch.bmm(c, buf[:, :, i:i + _CHUNK].to(coef.dtype))
-                      for i in range(0, buf.shape[-1], _CHUNK)], dim=2)[:, 0]
-
-
 def _two_loop(grad, y_buf, s_buf, ro_buf, h_diag, count) -> torch.Tensor:
     """Two-loop recursion over each pair's `count` valid ring entries."""
     B, m, _ = y_buf.shape
@@ -149,16 +111,17 @@ def _permute2(gram: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return rows.gather(2, perm[:, None, :].expand(B, m, m))
 
 
-def _compact_solve(grad, y_buf, s_buf, gram_sy, gram_yy, sg, yg, h_diag,
-                   count) -> torch.Tensor:
-    """Compact-representation direction −H·g from the Gram matrices and the
-    projections Sᵀg, Yᵀg; the (m, n) buffers are read only for the final
-    two-vector reconstruction. With R = triu(SᵀY), D = diag(SᵀY), γ = h:
-        H·g = γg + S·R⁻ᵀ(D + γYᵀY)R⁻¹Sᵀg − γS·R⁻ᵀYᵀg − γY·R⁻¹Sᵀg."""
+def _compact_solve(gram_sy, gram_yy, sg, yg, h_diag, count):
+    """Coefficients of the compact-representation direction −H·g from the
+    Gram matrices and the projections Sᵀg, Yᵀg, in ring order. With
+    R = triu(SᵀY), D = diag(SᵀY), γ = h:
+        H·g = γg + S·R⁻ᵀ(D + γYᵀY)R⁻¹Sᵀg − γS·R⁻ᵀYᵀg − γY·R⁻¹Sᵀg
+            = γg + S·top + γY·bot;
+    returns (top, bot), each (B, m), 0 on the rows past the fill."""
     B, m = sg.shape
     num_valid = torch.clamp(count, max=m)
     start = torch.where(count < m, 0, count % m)
-    ranks = torch.arange(m, device=grad.device)
+    ranks = torch.arange(m, device=sg.device)
     perm = (start[:, None] + ranks[None]) % m     # chronological → ring
     valid = ranks[None] < num_valid[:, None]      # (B, m) in rank space
 
@@ -173,7 +136,7 @@ def _compact_solve(grad, y_buf, s_buf, gram_sy, gram_yy, sg, yg, h_diag,
     # unit diagonal on invalid ranks: the solves are the identity there,
     # and those coefficients are zeroed below anyway
     r_mat = torch.where(both & upper, sy, 0.0) + torch.diag_embed(
-        torch.where(valid, 0.0, 1.0).to(grad.dtype))
+        torch.where(valid, 0.0, 1.0).to(gram_sy.dtype))
     d_diag = torch.where(valid, torch.diagonal(sy, dim1=1, dim2=2), 0.0)
     yy_m = torch.where(both, yy, 0.0)
 
@@ -187,9 +150,7 @@ def _compact_solve(grad, y_buf, s_buf, gram_sy, gram_yy, sg, yg, h_diag,
 
     top_r = torch.zeros_like(top).scatter(1, perm, top)
     bot_r = torch.zeros_like(bot).scatter(1, perm, bot)
-    hg = gamma * grad + _hist_combine(top_r, s_buf) \
-        + gamma * _hist_combine(bot_r, y_buf)
-    return -hg
+    return top_r, bot_r
 
 
 def lbfgs_iteration(
@@ -250,25 +211,22 @@ def _iteration(value_and_grad_fn, state, pos, lr, tolerance_grad,
     with profiling.span("lbfgs.direction"):
         gram_sy, gram_yy = state.gram_sy, state.gram_yy
         if direction == "compact":
-            # one pass per buffer gives Sᵀg, Yᵀg and the new Gram row/column
-            # (S·y_new, Y·y_new, Y·s_new); columns rounded to the history
-            # dtype
-            rhs = torch.stack([grad, y, s], dim=2).to(hdt)     # (B, n, 3)
-            prods_s = _hist_products(s_buf, rhs)                # (B, m, 3)
-            prods_y = _hist_products(y_buf, rhs)
-            sg, yg = prods_s[..., 0], prods_y[..., 0]
+            # one pass over the valid rows of both buffers gives Sᵀg, Yᵀg
+            # and the new Gram row and column (S·y_new, Y·y_new, Y·s_new),
+            # with g, y, s rounded to the history dtype
+            sg, s_y, yg, y_y, y_s = lbfgs_hist.hist_products(
+                s_buf, y_buf, grad, y, s, count).unbind(1)
             p = push[:, None]
             gram_sy, gram_yy = gram_sy.clone(), gram_yy.clone()
-            gram_sy[ar, :, idx] = torch.where(p, prods_s[..., 1],
-                                              gram_sy[ar, :, idx])
-            gram_sy[ar, idx, :] = torch.where(p, prods_y[..., 2],
-                                              gram_sy[ar, idx, :])
-            gram_yy[ar, :, idx] = torch.where(p, prods_y[..., 1],
-                                              gram_yy[ar, :, idx])
-            gram_yy[ar, idx, :] = torch.where(p, prods_y[..., 1],
-                                              gram_yy[ar, idx, :])
-            d_hist = _compact_solve(grad, y_buf, s_buf, gram_sy, gram_yy, sg,
-                                    yg, h_diag, count)
+            gram_sy[ar, :, idx] = torch.where(p, s_y, gram_sy[ar, :, idx])
+            gram_sy[ar, idx, :] = torch.where(p, y_s, gram_sy[ar, idx, :])
+            gram_yy[ar, :, idx] = torch.where(p, y_y, gram_yy[ar, :, idx])
+            gram_yy[ar, idx, :] = torch.where(p, y_y, gram_yy[ar, idx, :])
+            top, bot = _compact_solve(gram_sy, gram_yy, sg, yg, h_diag,
+                                      count)
+            # the second pass: −(γg + S·top + γY·bot)
+            d_hist = lbfgs_hist.hist_combine(s_buf, y_buf, grad, top, bot,
+                                             h_diag, count)
         else:
             d_hist = _two_loop(grad, y_buf, s_buf, ro_buf, h_diag, count)
         d = torch.where(first[:, None], -grad, d_hist)

@@ -25,7 +25,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("corr_lookup", "small_conv", "local_corr", "segsum")
+SOURCES = ("corr_lookup", "small_conv", "local_corr", "segsum",
+           "lbfgs_hist")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -14,9 +14,11 @@
   or not a profiler runs (no device work, no synchronisation), and a
   snapshot of them. The names in use: `flow.closures` and `flow.forwards`
   (calls of `runtime.make_flow_fn`'s flow function with and without
-  gradient recording), `lbfgs.iterations` (`lbfgs_iteration` calls) and
-  `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation path
-  `resolve_corr_impl` chose).
+  gradient recording), `lbfgs.iterations` (`lbfgs_iteration` calls),
+  `lbfgs.direction.kernel` (compact directions computed by the history
+  kernels of `ops/lbfgs_hist.py`, on the card: launches of its combine)
+  and `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation
+  path `resolve_corr_impl` chose).
 * `debug_nans()`: opt-in anomaly detection (`torch.autograd.
   set_detect_anomaly`), which raises where a backward produces NaN.
 * `fence()` and `StepTimer`: wall-clock step timing that waits for the

@@ -16,7 +16,11 @@ inputs, so they differ by bf16 rounding (3e-2). The patch correlation's
 kernel and plain version are float32 sums of the same products in another
 order (1e-4), each rounded once to bf16 (one bf16 ulp, ≤ 2⁻⁷ of a value:
 1e-2). The scale is the plain result's largest magnitude, with no floor,
-so a limit stays relative to values well under 1.
+so a limit stays relative to values well under 1. The L-BFGS history's
+passes are held per element against the float32 sum order: a float32 sum
+of n products in two orders differs by a few float32 ulps of Σ|products|
+(1e-5 of it for n ≈ 12,300; 1e-12 in float64), the combine's sum of at
+most 5 rows by 1e-6 of Σ|terms| (1e-14 in float64).
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from pcfa_tpu_torch.ops import corr_lookup as cl
+from pcfa_tpu_torch.ops import lbfgs_hist as lh
 from pcfa_tpu_torch.ops import small_conv as sc
 
 R = 4
@@ -1011,3 +1016,184 @@ def test_clip01_on_card(cuda, dtype):
     assert y.device == x.device and y.dtype == dtype
     assert y.tolist() == [0.0, 0.0, 0.25, 1.0, 1.0]
     assert x.grad.tolist() == [0.0, 0.5, 1.0, 0.5, 0.0]
+
+
+# ------------------------------------------------ L-BFGS history passes ---
+
+HIST_M = 5
+HIST_TOL = {torch.bfloat16: (1e-5, 1e-6), torch.float32: (1e-5, 1e-6),
+            torch.float64: (1e-12, 1e-14)}   # (products, combine)
+
+
+def _hist_case(rng, dev, dtype, pairs, count, n, layout):
+    """A ring of HIST_M rows per pair, filled to `count` (the middle pair of
+    three to another fill), NaN in the rows past the fill (never to be
+    read); g, y, s and the coefficients in float32 (float64 for a float64
+    history). `layout` 'offset' puts S and Y one element past a 16-byte
+    boundary. Returns (S, Y, vectors, count, the ring with zeros past the
+    fill, top, bot, gamma)."""
+    xdt = torch.float64 if dtype is torch.float64 else torch.float32
+    counts = [count] * pairs
+    if pairs == 3:
+        counts[1] = 3 if count != 3 else 12
+    cnt = torch.tensor(counts, dtype=torch.int64, device=dev)
+    valid = lh._valid(cnt, HIST_M)
+    shape = (pairs, HIST_M, n)
+
+    def ring():
+        vals = torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+        if layout == "offset":
+            flat = torch.empty(vals.numel() + 8, dtype=dtype, device=dev)
+            vals = flat[1:1 + vals.numel()].view(shape).copy_(vals)
+        return vals
+
+    S, Y = ring(), ring()
+    zeroed = [torch.where(valid[..., None], t, 0).to(dtype) for t in (S, Y)]
+    for t in (S, Y):
+        t.masked_fill_(~valid[..., None], float("nan"))
+    vecs = [torch.from_numpy(rng.standard_normal((pairs, n))).to(dev, xdt)
+            for _ in "gys"]
+    top, bot = (torch.from_numpy(rng.standard_normal((pairs, HIST_M)))
+                .to(dev, xdt) for _ in "tb")
+    gamma = torch.from_numpy(rng.uniform(0.5, 2.0, pairs)).to(dev, xdt)
+    return S, Y, vecs, cnt, zeroed, top, bot, gamma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("pairs", [1, 3])
+@pytest.mark.parametrize("count", [0, 3, 5, 12])
+@pytest.mark.parametrize("n,layout", [(4096 * 3 + 5, "scalar"),
+                                      (4096 * 3 + 8, "pieces"),
+                                      (4096 * 3 + 8, "offset")])
+def test_lbfgs_hist_kernels_match_plain(rng, cuda, dtype, pairs, count, n,
+                                        layout):
+    """Both passes against the plain versions on a ring that is empty,
+    partial, full and wrapped (count 0, 3, 5, 12 of 5 rows; the middle of
+    three pairs filled to another count), for bf16, float32 and float64
+    histories, with n not a multiple of 8 (scalar path), a multiple
+    (16-byte pieces) and S, Y not 16-byte aligned (scalar path). The rows
+    past the fill hold NaN: the kernels never read them. Two launches give
+    the same bits."""
+    S, Y, vecs, cnt, zeroed, top, bot, gamma = _hist_case(
+        rng, cuda, dtype, pairs, count, n, layout)
+    vec = lh._vec(n, [S, Y, *vecs])
+    assert vec == (8 if layout == "pieces" else 1)
+    tol_p, tol_c = HIST_TOL[dtype]
+
+    before = lh.hist_products_cuda.launches
+    got = lh.hist_products(S, Y, *vecs, cnt)
+    again = lh.hist_products(S, Y, *vecs, cnt)
+    torch.cuda.synchronize()
+    assert lh.hist_products_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    ref = lh.hist_products_plain(*zeroed, *vecs, cnt)
+    assert got.shape == ref.shape == (pairs, 5, HIST_M)
+    assert got.dtype == ref.dtype
+    mags = lh.hist_products_plain(*(z.abs() for z in zeroed),
+                                  *(v.to(dtype).abs() for v in vecs), cnt)
+    err = (got.double() - ref.double()).abs()
+    assert bool((err <= tol_p * mags.double() + 1e-30).all()), \
+        float((err / mags.double().clamp(min=1e-30)).max())
+    valid = lh._valid(cnt, HIST_M)
+    assert torch.count_nonzero(got.masked_select(~valid[:, None])) == 0
+
+    before = lh.hist_combine_cuda.launches
+    d = lh.hist_combine(S, Y, vecs[0], top, bot, gamma, cnt)
+    d2 = lh.hist_combine(S, Y, vecs[0], top, bot, gamma, cnt)
+    torch.cuda.synchronize()
+    assert lh.hist_combine_cuda.launches == before + 2
+    assert torch.equal(d, d2) and d.dtype == vecs[0].dtype
+    ref = lh.hist_combine_plain(*zeroed, vecs[0], top, bot, gamma, cnt)
+    mags = -lh.hist_combine_plain(*(z.abs() for z in zeroed),
+                                  vecs[0].abs(), top.abs(), bot.abs(),
+                                  gamma, cnt)
+    err = (d.double() - ref.double()).abs()
+    assert bool((err <= tol_c * mags.double() + 1e-30).all()), \
+        float((err / mags.double().clamp(min=1e-30)).max())
+
+
+@pytest.mark.cuda
+def test_lbfgs_hist_kernels_at_two_kitti_pairs(rng, cuda):
+    """The main path's shape at B = 2 (n = 2·3·376·1248, bf16 ring of 100
+    rows, 37 of them filled): many slabs and sub-chunks a block."""
+    n, m = 2 * 3 * 376 * 1248, 100
+    S = torch.zeros((2, m, n), dtype=torch.bfloat16, device=cuda)
+    Y = torch.zeros_like(S)
+    S[:, :37].normal_()
+    Y[:, :37].normal_()
+    vecs = [torch.randn((2, n), device=cuda) for _ in "gys"]
+    cnt = torch.tensor([37, 37], device=cuda)
+    got = lh.hist_products(S, Y, *vecs, cnt)
+    ref = lh.hist_products_plain(S, Y, *vecs, cnt)
+    mags = lh.hist_products_plain(S.abs(), Y.abs(),
+                                  *(v.to(S.dtype).abs() for v in vecs), cnt)
+    # sums of 2.8 M products: 4e-5 of Σ|products|
+    assert bool(((got - ref).abs() <= 4e-5 * mags + 1e-30).all())
+    top, bot = torch.randn((2, m), device=cuda), torch.randn((2, m),
+                                                            device=cuda)
+    gamma = torch.tensor([0.8, 1.2], device=cuda)
+    d = lh.hist_combine(S, Y, vecs[0], top, bot, gamma, cnt)
+    ref = lh.hist_combine_plain(S, Y, vecs[0], top, bot, gamma, cnt)
+    mags = -lh.hist_combine_plain(S.abs(), Y.abs(), vecs[0].abs(), top.abs(),
+                                  bot.abs(), gamma, cnt)
+    # sums of 37 rows: 1e-6 of Σ|terms|
+    assert bool(((d - ref).abs() <= 1e-6 * mags + 1e-30).all())
+
+
+def _quadratic(rng, dev, dtype, pairs, n):
+    """Per pair ½xᵀAx − bᵀx with a diagonal A of spread 1..20."""
+    a = torch.from_numpy(rng.uniform(1.0, 20.0, (pairs, n))).to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal((pairs, n))).to(dev, dtype)
+    x0 = torch.from_numpy(rng.standard_normal((pairs, n))).to(dev, dtype)
+
+    def vg(x):
+        ax = a * x
+        return 0.5 * (x * ax).sum(1) - (b * x).sum(1), ax - b
+
+    return vg, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hist,tol_loss,tol_x", [
+    (torch.float64, None, 1e-9, 1e-9), (torch.float32, None, 1e-6, 1e-5),
+    (torch.float32, "bfloat16", 1e-5, 3e-3)])
+def test_lbfgs_compact_trajectory_on_card_matches_plain(rng, cuda, dtype,
+                                                        hist, tol_loss,
+                                                        tol_x, monkeypatch):
+    """Twelve compact iterations (history 5: the ring wraps) of two
+    quadratics, the kernels against the plain versions on the same card:
+    losses and iterates within their tolerances of their scale. float64:
+    the sums' order only. float32: its rounding amplified by the solve; a
+    bf16 ring amplifies it most in the iterate near the minimum (on the
+    CPU, the plain versions summed in float64 instead of float32 moved it
+    by 3.8e-4 of its scale, the losses by 2e-7). Every direction went
+    through the kernels."""
+    from pcfa_tpu_torch.attack import lbfgs
+    from pcfa_tpu_torch.utils import profiling
+
+    vg, x0 = _quadratic(rng, cuda, dtype, 2, 4096 * 3 + 8)
+
+    def run():
+        state = lbfgs.lbfgs_init(x0, 5, hist)
+        losses = []
+        for it in range(12):
+            state, loss = lbfgs.lbfgs_iteration(vg, state, it % 6,
+                                                direction="compact")
+            losses.append(loss)
+        return torch.stack(losses, 1), state.x
+
+    before = profiling.counters().get("lbfgs.direction.kernel", 0)
+    launches = lh.hist_products_cuda.launches, lh.hist_combine_cuda.launches
+    losses, x = run()
+    assert profiling.counters()["lbfgs.direction.kernel"] == before + 12
+    assert (lh.hist_products_cuda.launches - launches[0],
+            lh.hist_combine_cuda.launches - launches[1]) == (12, 12)
+    monkeypatch.setattr(lh, "hist_products_cuda", lh.hist_products_plain)
+    monkeypatch.setattr(lh, "hist_combine_cuda", lh.hist_combine_plain)
+    ref_losses, ref_x = run()
+    assert float((losses - ref_losses).abs().max()) <= tol_loss * float(
+        ref_losses.abs().max())
+    assert float((x - ref_x).abs().max()) <= tol_x * float(ref_x.abs().max())
+    assert float(losses[:, -1].max()) < float(losses[:, 0].min())
