@@ -1137,8 +1137,14 @@ def compare_warp():
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        # a program span (`op.warp.bwd`) shows on the device too, as an
+        # annotation of its host event's name: not a launch
+        events = prof.key_averages()
+        host = {e.key for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU}
+        return sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in host)
 
     gen = torch.Generator().manual_seed(4)
     total = dict.fromkeys(("graph", "loop", "launches", "own"), 0.0)

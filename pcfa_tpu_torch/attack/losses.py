@@ -11,9 +11,31 @@ from __future__ import annotations
 import torch
 
 
+class _EndpointError(torch.autograd.Function):
+    """‖Δ‖₂ over the last axis, sqrt(Σ Δ²), computed as the square root of
+    the sum of squares. Its derivative is Δ/‖Δ‖, bit for bit the chain
+    rule's through the square root and the squares, and 0 where ‖Δ‖ is 0,
+    as `torch.linalg.vector_norm`'s: the chain rule's is ∞ · 0 = NaN
+    there."""
+
+    @staticmethod
+    def forward(ctx, diff):
+        norm = torch.sqrt(torch.sum(diff ** 2, dim=-1))
+        ctx.save_for_backward(diff, norm)
+        return norm
+
+    @staticmethod
+    def backward(ctx, g):
+        diff, norm = ctx.saved_tensors
+        return torch.where(norm == 0, 0.0, g / norm)[..., None] * diff
+
+
 def avg_epe(flow1: torch.Tensor, flow2: torch.Tensor) -> torch.Tensor:
-    """Average endpoint error: mean over pixels of ‖Δflow‖₂."""
-    return torch.sqrt(torch.sum((flow1 - flow2) ** 2, dim=-1)).mean()
+    """Average endpoint error: mean over pixels of ‖Δflow‖₂. Where a
+    pixel's Δflow is exactly 0 its derivative is 0 (`_EndpointError`): a
+    bf16 network driven toward a zero target meets such a pixel, and the
+    square root's derivative would make the whole input gradient NaN."""
+    return _EndpointError.apply(flow1 - flow2).mean()
 
 
 def avg_mse(flow1: torch.Tensor, flow2: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,12 @@ net's dc_conv6, go through the small-conv kernel with a LeakyReLU epilogue
 on CUDA (`ConvLeaky`, the routing of `_PConv3`): 11 layers per image.
 Module names follow the reference torch PWCNet's `state_dict` keys, less
 the unused `deconv2`.
+
+Spans (`utils/profiling.py`): `pwcnet.pyramid` (both frames' feature
+pyramid), `pwcnet.level` once for each of the five levels 6 → 2 (the
+warp from level 5 on, the correlation, the decoder and the upsampled flow
+and features for the next level), `pwcnet.context` (the context net and
+its flow residual) and `pwcnet.upsample` (the ×4 output).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 from pcfa_tpu_torch.ops.local_corr import local_corr
 from pcfa_tpu_torch.ops.small_conv import small_conv2d
 from pcfa_tpu_torch.ops.warp import grid_sample, interpolate_bilinear
+from pcfa_tpu_torch.utils import profiling
 
 _PYRAMID = (("1", 16), ("2", 32), ("3", 64), ("4", 96), ("5", 128),
             ("6", 196))
@@ -134,31 +141,37 @@ class PWCDCNet(nn.Module):
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
         B = im1.shape[0]
-        x = torch.cat([im1, im2], dim=0).flip(-1).permute(0, 3, 1, 2)
-        feats = {}
-        for (lvl, _), names in zip(_PYRAMID, self._stages):
-            for name in names:
-                x = getattr(self, name)(x)
-            feats[lvl] = x.permute(0, 2, 3, 1)  # channels-last view
+        with profiling.span("pwcnet.pyramid"):
+            x = torch.cat([im1, im2], dim=0).flip(-1).permute(0, 3, 1, 2)
+            feats = {}
+            for (lvl, _), names in zip(_PYRAMID, self._stages):
+                for name in names:
+                    x = getattr(self, name)(x)
+                feats[lvl] = x.permute(0, 2, 3, 1)  # channels-last view
 
-        x, flow = self._decode(self._correlate(feats["6"][:B],
-                                               feats["6"][B:]), "6")
-        up_flow, up_feat = self.deconv6(flow), self.upfeat6(x)
+        with profiling.span("pwcnet.level"):
+            x, flow = self._decode(self._correlate(feats["6"][:B],
+                                                   feats["6"][B:]), "6")
+            up_flow, up_feat = self.deconv6(flow), self.upfeat6(x)
         for lvl in ("5", "4", "3", "2"):
-            c1, c2 = feats[lvl][:B], feats[lvl][B:]
-            warped = pwc_warp(c2.contiguous(),
-                              (up_flow * _SCALES[lvl]).permute(0, 2, 3, 1))
-            x = torch.cat([self._correlate(c1, warped), c1.permute(0, 3, 1, 2),
-                           up_flow, up_feat], dim=1)
-            x, flow = self._decode(x, lvl)
-            if lvl != "2":
-                up_flow = getattr(self, f"deconv{lvl}")(flow)
-                up_feat = getattr(self, f"upfeat{lvl}")(x)
+            with profiling.span("pwcnet.level"):
+                c1, c2 = feats[lvl][:B], feats[lvl][B:]
+                warped = pwc_warp(c2.contiguous(),
+                                  (up_flow * _SCALES[lvl]).permute(0, 2, 3, 1))
+                x = torch.cat([self._correlate(c1, warped),
+                               c1.permute(0, 3, 1, 2), up_flow, up_feat],
+                              dim=1)
+                x, flow = self._decode(x, lvl)
+                if lvl != "2":
+                    up_flow = getattr(self, f"deconv{lvl}")(flow)
+                    up_feat = getattr(self, f"upfeat{lvl}")(x)
 
-        y = x
-        for i in range(1, len(_CONTEXT) + 1):
-            y = getattr(self, f"dc_conv{i}")(y)
-        flow2 = (flow + self.dc_conv7(y)).permute(0, 2, 3, 1)
-        H4, W4 = flow2.shape[1:3]
-        return 20.0 * interpolate_bilinear(flow2, (4 * H4, 4 * W4),
-                                           align_corners=False)
+        with profiling.span("pwcnet.context"):
+            y = x
+            for i in range(1, len(_CONTEXT) + 1):
+                y = getattr(self, f"dc_conv{i}")(y)
+            flow2 = (flow + self.dc_conv7(y)).permute(0, 2, 3, 1)
+        with profiling.span("pwcnet.upsample"):
+            H4, W4 = flow2.shape[1:3]
+            return 20.0 * interpolate_bilinear(flow2, (4 * H4, 4 * W4),
+                                               align_corners=False)

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from pcfa_tpu_torch.ops import _build
+from pcfa_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -398,18 +399,28 @@ local_corr_bwd.launches = 0
 
 
 class _LocalCorr(torch.autograd.Function):
+    """The kernels under autograd; spans `op.local_corr` (forward) and
+    `op.local_corr.bwd` (backward, on autograd's thread), each call
+    counted as `local_corr.fwd` / `local_corr.bwd` (`utils/profiling.py`):
+    one kernel launch each."""
+
     @staticmethod
     def forward(ctx, fmap1, fmap2, patch, stride):
         ctx.patch, ctx.stride = patch, stride
         ctx.save_for_backward(fmap1, fmap2)
-        return local_corr_fwd(fmap1, fmap2, patch, stride)
+        profiling.count("local_corr.fwd")
+        with profiling.span("op.local_corr"):
+            return local_corr_fwd(fmap1, fmap2, patch, stride)
 
     @staticmethod
     def backward(ctx, g):
         fmap1, fmap2 = ctx.saved_tensors
         if not any(ctx.needs_input_grad[:2]):
             return None, None, None, None
-        df1, df2 = local_corr_bwd(g, fmap1, fmap2, ctx.patch, ctx.stride)
+        profiling.count("local_corr.bwd")
+        with profiling.span("op.local_corr.bwd"):
+            df1, df2 = local_corr_bwd(g, fmap1, fmap2, ctx.patch,
+                                      ctx.stride)
         return (df1 if ctx.needs_input_grad[0] else None,
                 df2 if ctx.needs_input_grad[1] else None, None, None)
 

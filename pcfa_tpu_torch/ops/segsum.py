@@ -38,6 +38,7 @@ import functools
 import torch
 
 from pcfa_tpu_torch.ops import _build
+from pcfa_tpu_torch.utils import profiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -198,12 +199,16 @@ warp_bwd_cuda.launches = 0
 def warp_bwd(g, win, idx, w4, mask4, a, b, img_shape, img_dtype,
              need_img: bool = True, need_grid: bool = True):
     """The sampler's backward: (d img, d ix, d iy). CPU tensors: the plain
-    version; CUDA tensors: the kernel."""
+    version; CUDA tensors: the kernel. The span `op.warp.bwd`; each call
+    counted as `warp.bwd` (`utils/profiling.py`), on the card one kernel
+    launch."""
     dev = win.device
     args = (g, win, idx, w4, mask4, a, b, img_shape, img_dtype, need_img,
             need_grid)
-    if dev.type == "cpu":
-        return warp_bwd_plain(*args)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"warp bwd: unsupported device {dev}")
-    return warp_bwd_cuda(*args)
+    profiling.count("warp.bwd")
+    with profiling.span("op.warp.bwd"):
+        if dev.type == "cpu":
+            return warp_bwd_plain(*args)
+        return warp_bwd_cuda(*args)

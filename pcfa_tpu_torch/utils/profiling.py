@@ -16,9 +16,13 @@
   (calls of `runtime.make_flow_fn`'s flow function with and without
   gradient recording), `lbfgs.iterations` (`lbfgs_iteration` calls),
   `lbfgs.direction.kernel` (compact directions computed by the history
-  kernels of `ops/lbfgs_hist.py`, on the card: launches of its combine)
-  and `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation
-  path `resolve_corr_impl` chose).
+  kernels of `ops/lbfgs_hist.py`, on the card: launches of its combine),
+  `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation
+  path `resolve_corr_impl` chose), `local_corr.fwd` and `local_corr.bwd`
+  (the patch correlation's autograd forwards and backwards,
+  `ops/local_corr.py`: one kernel launch each) and `warp.bwd` (the
+  packed sampler's backwards, `ops/segsum.warp_bwd`: on the card one
+  kernel launch each).
 * `debug_nans()`: opt-in anomaly detection (`torch.autograd.
   set_detect_anomaly`), which raises where a backward produces NaN.
 * `fence()` and `StepTimer`: wall-clock step timing that waits for the

@@ -156,6 +156,76 @@ def test_penalty_derivative_at_the_bound_matches_jnp_maximum():
         np.testing.assert_array_equal(got.numpy(), 0.5 * full)
 
 
+def test_aee_derivative_where_the_flow_meets_the_target_is_zero(rng):
+    """Where a pixel's endpoint difference is exactly 0 the AEE's
+    derivative is 0, as `torch.linalg.vector_norm`'s (the square root's
+    is ∞ there, and ∞ · 0 made it NaN); the value is sqrt(Σ Δ²)'s bit for
+    bit, the derivative elsewhere the square root's bit for bit and the
+    JAX package's to float32 rounding, and a NaN flow stays NaN."""
+    pred = rng.standard_normal((2, 9, 11, 2)).astype(np.float32)
+    tgt = rng.standard_normal((2, 9, 11, 2)).astype(np.float32)
+    pred[0, 3, 4] = tgt[0, 3, 4]
+    pred[1, 8, 0] = tgt[1, 8, 0]
+    met = np.zeros((2, 9, 11, 2), bool)
+    met[0, 3, 4] = met[1, 8, 0] = True
+
+    def value_and_grad(fn):
+        p = _t(pred).requires_grad_(True)
+        v = fn(p, _t(tgt))
+        v.backward()
+        return v.detach(), p.grad
+
+    def sqrt_aee(a, b):
+        return torch.sqrt(torch.sum((a - b) ** 2, dim=-1)).mean()
+
+    v, g = value_and_grad(losses.avg_epe)
+    v_sqrt, g_sqrt = value_and_grad(sqrt_aee)
+    assert torch.equal(v, v_sqrt)
+    assert bool(torch.isnan(g_sqrt[torch.from_numpy(met)]).all())
+    assert bool(torch.isfinite(g).all())
+    assert not bool(g[torch.from_numpy(met)].any())
+    assert torch.equal(g[torch.from_numpy(~met)], g_sqrt[torch.from_numpy(
+        ~met)])
+    want = jax.grad(jlosses.avg_epe)(jnp.asarray(pred), jnp.asarray(tgt))
+    np.testing.assert_allclose(g.numpy()[~met], np.asarray(want)[~met],
+                               rtol=1e-6, atol=1e-9)
+    bad = pred.copy()
+    bad[1, 2, 2, 0] = np.nan
+    assert bool(torch.isnan(losses.avg_epe(_t(bad), _t(tgt))))
+
+
+def test_pcfa_stays_finite_where_the_flow_meets_the_target_exactly():
+    """A flow that meets the zero target exactly at one pixel whatever the
+    frames (the network's output is multiplied by 0 there): the closures'
+    gradients and every iterate of three compact L-BFGS iterations stay
+    finite, the attack moves, and the pixel's inputs get no gradient from
+    it."""
+    gen = torch.Generator().manual_seed(5)
+    x1, x2 = (torch.rand((1, 8, 8, 3), generator=gen) for _ in range(2))
+    keep = torch.ones((1, 8, 8, 1))
+    keep[0, 2, 5] = 0.0
+
+    def flow_fn(a, b):
+        return (a - 0.5 * b)[..., :2] * keep
+
+    cfg = pcfa.PCFAConfig(steps=1, max_iter=3, delta_bound=0.05,
+                          boxconstraint="change_of_variables",
+                          lbfgs_direction="compact")
+    state, init = pcfa.pcfa_init(flow_fn, x1, x2, cfg, "cpu")
+    assert float(init[0, 2, 5].abs().sum()) == 0.0
+    _, _, _, value_and_grad = pcfa._make_problem(
+        flow_fn, x1, x2, torch.zeros((1, 8, 8, 2)), cfg)
+    loss, grad = value_and_grad(state.opt.x)
+    assert bool(torch.isfinite(loss).all() & torch.isfinite(grad).all())
+    state, metrics, _ = pcfa.pcfa_outer_step(
+        flow_fn, x1, x2, torch.zeros((1, 8, 8, 2)), init, state, cfg)
+    assert int(state.opt.n_iter[0]) == 3
+    assert bool(torch.isfinite(state.opt.x).all())
+    assert bool(torch.isfinite(metrics.aee_adv_tgt).all())
+    assert not torch.equal(state.opt.x, pcfa._make_problem(
+        flow_fn, x1, x2, None, cfg)[0])
+
+
 @pytest.mark.parametrize("joint", [False, True])
 def test_first_pcfa_closure_gradient_matches_jax_on_saturated_frames(
         rng, joint):

@@ -716,8 +716,14 @@ def test_grid_sample_autograd_on_card(rng, cuda, dtype):
                              ProfilerActivity.CUDA]) as prof:
         torch.autograd.grad(out, (a, ix, iy), gc)
         torch.cuda.synchronize()
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    # the backward's span (`op.warp.bwd`) shows on the device too, as an
+    # annotation of the same name as its host event: not a launch
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    launches = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in host)
     assert 1 <= launches <= (3 if dtype == torch.bfloat16 else 2), \
         launches
 
@@ -1197,3 +1203,59 @@ def test_lbfgs_compact_trajectory_on_card_matches_plain(rng, cuda, dtype,
         ref_losses.abs().max())
     assert float((x - ref_x).abs().max()) <= tol_x * float(ref_x.abs().max())
     assert float(losses[:, -1].max()) < float(losses[:, 0].min())
+
+
+@pytest.mark.cuda
+def test_pwcnet_bf16_pcfa_replay_stays_finite(cuda, monkeypatch, tmp_path):
+    """Seed 4100000006's first 7 attacks of the benchmark's cell
+    `pwcnet-pcfa-kitti-b1`, at full size through its own path (its weights,
+    frames and `Runner`: PWC-DC Net with a bf16 network, float32 history,
+    compact direction, 20 outer steps × 10 iterations): every outer step's
+    AEE and δ norm finite. Before the AEE's derivative at an exactly zero
+    endpoint difference was defined, 2 to 4 of the 7 went NaN on every
+    replay (a pixel of the bf16 flow met the zero target exactly, and the
+    square root's derivative made the whole input gradient NaN)."""
+    import json
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root / "benchmark"))
+    import cells
+    import synthetic
+    import weights
+    from pcfa_tpu_torch import runtime
+
+    cfg = json.loads((root / "benchmark/configs/pwcdc-kitti-bf16.json")
+                     .read_text())
+    traffic = json.loads((root / "benchmark/traffic/pcfa-published-b1.json")
+                         .read_text())
+    for key in [k for k in os.environ if k.startswith("PCFA_")]:
+        monkeypatch.delenv(key)
+    for key, value in cfg["env"].items():
+        monkeypatch.setenv(key, value)
+    seed, hw = 4100000006, tuple(cfg["image_hw"])
+    ref = cells.module("reference", cfg["reference"], root)
+    with torch.device("meta"):
+        published = getattr(ref, cfg["reference_class"])(**cfg["model"])
+    path = str(tmp_path / "pwcnet.pth")
+    weights.save(weights.make(published, seed, cuda, **cfg["weights"]), path,
+                 cfg["checkpoint_container"])
+    loaded = runtime.load_model(cfg["net"], checkpoint=path, device=cuda,
+                                **cfg["model"])
+    padder, flow_fn = runtime.make_flow_fn(loaded, hw,
+                                           pad_mode=cfg["pad_mode"])
+    runner = cells.module("attacks", traffic["attack"], root).Runner(
+        flow_fn, cfg["net"], traffic, cuda)
+    target = torch.zeros((1, *hw, 2), device=cuda)
+    failed = []
+    for a in range(7):
+        images = synthetic.batch(seed, a, 1, hw, traffic["max_shift"])
+        att = runner.start(*padder.pad(*(torch.from_numpy(x).to(cuda)
+                                         for x in images)), target)
+        for s in range(runner.steps):
+            aee, l2, _ = att.step()
+            if not bool(torch.isfinite(torch.stack([aee, l2])).all()):
+                failed.append((a, s))
+                break
+    assert not failed, f"(attack, outer step) gone non-finite: {failed}"

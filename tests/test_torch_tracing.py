@@ -130,7 +130,9 @@ def traced(flow_fn):
                            fgsm.FGSMConfig())
         after = profiling.counters()
     events = _events(prof)
-    delta = {k: v - before.get(k, 0) for k, v in after.items()}
+    # the counters that moved: others the process counted before stay out
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
     return events, delta
 
 
@@ -221,3 +223,78 @@ def test_backward_nodes_map_to_forward_spans(traced):
         assert span is not None, (n.name, op.name)
         under_flow += span.name.startswith(("raft.", "op.", "flow"))
     assert under_flow > len(nodes) // 2
+
+
+#: PWCNet's spans and the program span each opens directly inside
+PWC_PARENTS = {"pwcnet.pyramid": {"flow"}, "pwcnet.level": {"flow"},
+               "pwcnet.context": {"flow"}, "pwcnet.upsample": {"flow"},
+               "op.local_corr": {"pwcnet.level"}}
+PWC_BACKWARD = {"op.local_corr.bwd", "op.warp.bwd"}
+
+
+@pytest.fixture(scope="module")
+def pwc_traced():
+    """The events and counter changes of one PWCNet closure (the flow and
+    its backward to both frames) and one forward without gradient, at
+    64×64, under the CPU profiler; the correlation takes its
+    `autograd.Function` with the plain versions in place of the kernels,
+    as on the card."""
+    from pcfa_tpu_torch.models import pwcnet
+    from pcfa_tpu_torch.ops import local_corr as lc
+
+    m = load_model("PWCNet", init_random=True, seed=0, device="cpu")
+    flow_fn = make_flow_fn(m, (64, 64))[1]
+    g = torch.Generator().manual_seed(4)
+    x1, x2 = (torch.rand((1, 64, 64, 3), generator=g).requires_grad_(True)
+              for _ in range(2))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pwcnet, "local_corr", lc._LocalCorr.apply)
+        mp.setattr(lc, "local_corr_fwd", lc.local_corr_plain)
+        mp.setattr(lc, "local_corr_bwd", lc.local_corr_bwd_plain)
+        before = profiling.counters()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            flow_fn(x1, x2).square().sum().backward()
+            with torch.no_grad():
+                flow_fn(x1, x2)
+        after = profiling.counters()
+    # the counters that moved: others the process counted before stay out
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    return _events(prof), delta
+
+
+def test_pwcnet_spans_open_as_documented(pwc_traced):
+    """Per forward: the pyramid, the context net and the upsampling once,
+    a level span for each of the five levels, a correlation in each; per
+    closure's backward five correlation and four warp backwards, each
+    inside a backward node."""
+    events, _ = pwc_traced
+    names = set(PARENTS) | set(PWC_PARENTS)
+    seen = {}
+    for e in events:
+        if e.name in PWC_BACKWARD:
+            assert _in_node(e), e.name
+        elif e.name in PWC_PARENTS:
+            parent = _inner(e, names)
+            assert parent is not None and parent.name in PWC_PARENTS[
+                e.name], (e.name, parent and parent.name)
+        else:
+            continue
+        seen[e.name] = seen.get(e.name, 0) + 1
+    assert seen == {"pwcnet.pyramid": 2, "pwcnet.level": 10,
+                    "pwcnet.context": 2, "pwcnet.upsample": 2,
+                    "op.local_corr": 10, "op.local_corr.bwd": 5,
+                    "op.warp.bwd": 4}
+    flows = [e for e in events if e.name == "flow"]
+    assert len(flows) == 2
+    for level in (e for e in events if e.name == "pwcnet.level"):
+        assert sum(e.name == "op.local_corr" and _inner(e, names) is level
+                   for e in events) == 1
+
+
+def test_pwcnet_op_counters_count_per_closure(pwc_traced):
+    _, delta = pwc_traced
+    assert delta["flow.closures"] == 1 and delta["flow.forwards"] == 1
+    assert delta["local_corr.fwd"] == 10      # five levels, two forwards
+    assert delta["local_corr.bwd"] == 5       # the closure's backward
+    assert delta["warp.bwd"] == 4             # levels 5 to 2
