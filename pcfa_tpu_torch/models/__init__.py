@@ -40,7 +40,7 @@ register(
 )
 
 register(ModelSpec(name="PWCNet", pad_divisor=64, make=PWCDCNet,
-                   convert=convert.pwcnet_state_from_torch))
+                   convert=convert.pwcnet_state_from_torch, capturable=True))
 
 register(
     ModelSpec(

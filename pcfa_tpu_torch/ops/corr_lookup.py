@@ -132,6 +132,7 @@ def _check_levels(levels, coords, radius):
                          "float32 (N, 2)")
 
 
+@profiling.launch_counted
 def corr_window_fwd(levels: list[torch.Tensor], coords: torch.Tensor,
                     radius: int = 4) -> torch.Tensor:
     """Launch the forward kernel (CUDA tensors only)."""
@@ -151,9 +152,7 @@ def corr_window_fwd(levels: list[torch.Tensor], coords: torch.Tensor,
     return out
 
 
-corr_window_fwd.launches = 0
-
-
+@profiling.launch_counted
 def corr_window_bwd(grad_out: torch.Tensor, dmaps: list[torch.Tensor],
                     coords: torch.Tensor, radius: int = 4
                     ) -> list[torch.Tensor]:
@@ -177,9 +176,6 @@ def corr_window_bwd(grad_out: torch.Tensor, dmaps: list[torch.Tensor],
     _build.check(err, "pcfa_corr_window_bwd")
     corr_window_bwd.launches += 1
     return dmaps
-
-
-corr_window_bwd.launches = 0
 
 
 def _zeros(like) -> list[torch.Tensor]:

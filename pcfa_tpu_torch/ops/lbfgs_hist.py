@@ -187,6 +187,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@profiling.launch_counted
 def hist_products_cuda(s_buf, y_buf, grad, y, s, count) -> torch.Tensor:
     """Launch the products kernel and its reduction over the slabs (CUDA
     tensors). Same arguments and result as `hist_products_plain`."""
@@ -209,9 +210,7 @@ def hist_products_cuda(s_buf, y_buf, grad, y, s, count) -> torch.Tensor:
     return out
 
 
-hist_products_cuda.launches = 0
-
-
+@profiling.launch_counted
 def hist_combine_cuda(s_buf, y_buf, grad, top, bot, gamma,
                       count) -> torch.Tensor:
     """Launch the combine kernel (CUDA tensors). Same arguments and result
@@ -239,9 +238,6 @@ def hist_combine_cuda(s_buf, y_buf, grad, top, bot, gamma,
     # the combine ends a direction: one computed by the kernels
     profiling.count("lbfgs.direction.kernel")
     return d
-
-
-hist_combine_cuda.launches = 0
 
 
 def _route(s_buf, what):

@@ -341,6 +341,7 @@ def _check(fmap1, fmap2, patch, stride):
                          f"got patch {patch}, stride {stride}")
 
 
+@profiling.launch_counted
 def local_corr_fwd(fmap1: torch.Tensor, fmap2: torch.Tensor, patch: int = 9,
                    stride: int = 1) -> torch.Tensor:
     """Launch the forward kernel (CUDA tensors only)."""
@@ -361,9 +362,7 @@ def local_corr_fwd(fmap1: torch.Tensor, fmap2: torch.Tensor, patch: int = 9,
     return out
 
 
-local_corr_fwd.launches = 0
-
-
+@profiling.launch_counted
 def local_corr_bwd(g: torch.Tensor, fmap1: torch.Tensor, fmap2: torch.Tensor,
                    patch: int = 9, stride: int = 1
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -393,9 +392,6 @@ def local_corr_bwd(g: torch.Tensor, fmap1: torch.Tensor, fmap2: torch.Tensor,
     _build.check(err, "pcfa_local_corr_bwd")
     local_corr_bwd.launches += 1
     return df1, df2
-
-
-local_corr_bwd.launches = 0
 
 
 class _LocalCorr(torch.autograd.Function):

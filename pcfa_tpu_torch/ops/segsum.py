@@ -136,6 +136,7 @@ def _f32(t: torch.Tensor, what: str) -> torch.Tensor:
 _IMAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 
+@profiling.launch_counted
 def warp_bwd_cuda(g, win, idx, w4, mask4, a, b, img_shape, img_dtype,
                   need_img: bool = True, need_grid: bool = True):
     """Launch the kernel (CUDA tensors): one zero fill of the float32 image
@@ -191,9 +192,6 @@ def warp_bwd_cuda(g, win, idx, w4, mask4, a, b, img_shape, img_dtype,
     if need_grid and a.dtype is not torch.float32:
         dix, diy = dix.to(a.dtype), diy.to(b.dtype)
     return dimg, dix, diy
-
-
-warp_bwd_cuda.launches = 0
 
 
 def warp_bwd(g, win, idx, w4, mask4, a, b, img_shape, img_dtype,

@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from pcfa_tpu_torch.ops import _build
-from pcfa_tpu_torch.utils import profiling
+from pcfa_tpu_torch.utils import graphs, profiling
 
 _ACTS = {None: 0, "relu": 1, "leaky": 2}
 _P = ctypes.c_void_p
@@ -305,6 +305,8 @@ def _launch_tc(kind, inp, weight, bias, out, x_shape, stride, act, mask,
     plan, rows = _plan_for(kind, x_shape, weight.shape[0], k, stride,
                            mask is not None)
     packed = _packed_for(weight, plan)
+    # a graph captured here replays this address, which the cache may evict
+    graphs.hold(packed)
     B, C, H, W = inp.shape
     vec = W % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (inp, mask)
                              if t is not None)
@@ -343,6 +345,7 @@ def _check(x, weight, bias, stride):
                              "share dtype and device")
 
 
+@profiling.launch_counted
 def small_conv_fwd(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor | None = None, stride: int = 1,
                    act: str | None = None) -> torch.Tensor:
@@ -373,9 +376,7 @@ def small_conv_fwd(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
-small_conv_fwd.launches = 0
-
-
+@profiling.launch_counted
 def small_conv_dx(g: torch.Tensor, weight: torch.Tensor, x_shape,
                   stride: int = 1, out: torch.Tensor | None = None,
                   act: str | None = None) -> torch.Tensor:
@@ -412,9 +413,6 @@ def small_conv_dx(g: torch.Tensor, weight: torch.Tensor, x_shape,
         _build.check(err, "pcfa_small_conv_dx_f32")
     small_conv_dx.launches += 1
     return dx
-
-
-small_conv_dx.launches = 0
 
 
 class _SmallConv(torch.autograd.Function):

@@ -31,6 +31,7 @@ from pcfa_tpu_torch.config import compute_dtype
 from pcfa_tpu_torch.models import make_model
 from pcfa_tpu_torch.models.convert import load_torch_state
 from pcfa_tpu_torch.utils import profiling
+from pcfa_tpu_torch.utils.graphs import GraphedNetwork
 from pcfa_tpu_torch.utils.padder import InputPadder
 
 #: default checkpoints of the ported networks (`pcfa_tpu/runtime.py`):
@@ -132,7 +133,10 @@ def make_flow_fn(loaded: LoadedModel, image_hw: tuple[int, int],
     weights and inputs in bf16 (a cast copy of the module) while coords,
     flow and the returned `flow_up` stay float32. Each call is the span
     `flow` and counts as `flow.closures` where it records a gradient to
-    its inputs, else as `flow.forwards` (`utils/profiling.py`)."""
+    its inputs, else as `flow.forwards` (`utils/profiling.py`). On the
+    card, a network whose spec declares `capturable` replays its forward
+    and backward from CUDA graphs (`utils/graphs.py`); the cast, the
+    unpad and the float32 flow stay outside them."""
     H, W = image_hw
     padder = InputPadder((H, W, 3), divisor=loaded.spec.pad_divisor,
                          mode=pad_mode)
@@ -140,15 +144,21 @@ def make_flow_fn(loaded: LoadedModel, image_hw: tuple[int, int],
     module = loaded.module
     if cdtype is not None:
         module = copy.deepcopy(module).to(cdtype)
+    graphed = (GraphedNetwork(module, cdtype, loaded.name)
+               if loaded.spec.capturable and loaded.device.type == "cuda"
+               else None)
 
     def flow_fn(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         grad = torch.is_grad_enabled() and (x1.requires_grad
                                             or x2.requires_grad)
         profiling.count("flow.closures" if grad else "flow.forwards")
         with profiling.span("flow"):
-            if cdtype is not None:
-                x1, x2 = x1.to(cdtype), x2.to(cdtype)
-            out = module(x1, x2)
+            if graphed is not None:
+                out = graphed(x1, x2)
+            else:
+                if cdtype is not None:
+                    x1, x2 = x1.to(cdtype), x2.to(cdtype)
+                out = module(x1, x2)
             if isinstance(out, tuple):
                 out = out[-1]
             return padder.unpad(out.to(torch.float32))

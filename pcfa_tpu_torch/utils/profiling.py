@@ -14,15 +14,22 @@
   or not a profiler runs (no device work, no synchronisation), and a
   snapshot of them. The names in use: `flow.closures` and `flow.forwards`
   (calls of `runtime.make_flow_fn`'s flow function with and without
-  gradient recording), `lbfgs.iterations` (`lbfgs_iteration` calls),
-  `lbfgs.direction.kernel` (compact directions computed by the history
-  kernels of `ops/lbfgs_hist.py`, on the card: launches of its combine),
+  gradient recording), `flow.graph_captures` and `flow.graph_replays`
+  (for a network replayed from CUDA graphs, `utils/graphs.py`: input keys
+  captured, a closure's forward and backward graphs counted as one, and
+  flow-function calls answered by a replay), `lbfgs.iterations`
+  (`lbfgs_iteration` calls), `lbfgs.direction.kernel` (compact directions
+  computed by the history kernels of `ops/lbfgs_hist.py`, on the card:
+  launches of its combine),
   `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation
   path `resolve_corr_impl` chose), `local_corr.fwd` and `local_corr.bwd`
   (the patch correlation's autograd forwards and backwards,
   `ops/local_corr.py`: one kernel launch each) and `warp.bwd` (the
   packed sampler's backwards, `ops/segsum.warp_bwd`: on the card one
   kernel launch each).
+* `launch_counted(fn)`: marks a hand-written kernel's launching wrapper,
+  which adds 1 to its `.launches` at each launch; `launch_counted_wrappers()`
+  lists them all (`utils/graphs.py` credits them on a replay).
 * `debug_nans()`: opt-in anomaly detection (`torch.autograd.
   set_detect_anomaly`), which raises where a backward produces NaN.
 * `fence()` and `StepTimer`: wall-clock step timing that waits for the
@@ -44,6 +51,7 @@ from torch.profiler import record_function
 #: what `span` returns while no profiler runs
 _NO_SPAN = contextlib.nullcontext()
 _COUNTERS: dict[str, int] = {}
+_LAUNCH_COUNTED: list = []
 
 
 def span(name: str):
@@ -63,6 +71,20 @@ def count(name: str, n: int = 1) -> None:
 def counters() -> dict[str, int]:
     """A snapshot of the counters: {name: count since the process began}."""
     return dict(_COUNTERS)
+
+
+def launch_counted(fn):
+    """Gives the kernel-launching wrapper `fn` its `.launches` (0), which
+    `fn` adds 1 to at each launch, and lists it in
+    `launch_counted_wrappers`."""
+    fn.launches = 0
+    _LAUNCH_COUNTED.append(fn)
+    return fn
+
+
+def launch_counted_wrappers() -> tuple:
+    """The wrappers `launch_counted` marked."""
+    return tuple(_LAUNCH_COUNTED)
 
 
 @contextlib.contextmanager

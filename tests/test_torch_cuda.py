@@ -1259,3 +1259,243 @@ def test_pwcnet_bf16_pcfa_replay_stays_finite(cuda, monkeypatch, tmp_path):
                 failed.append((a, s))
                 break
     assert not failed, f"(attack, outer step) gone non-finite: {failed}"
+
+
+def _graph_counts():
+    """The counters a replay must advance: the program's and the kernels'
+    `.launches`."""
+    from pcfa_tpu_torch.ops import local_corr, segsum
+    from pcfa_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    out = {k: c.get(k, 0) for k in (
+        "local_corr.fwd", "local_corr.bwd", "warp.bwd", "flow.graph_captures",
+        "flow.graph_replays")}
+    out.update(local_corr_fwd=local_corr.local_corr_fwd.launches,
+               local_corr_bwd=local_corr.local_corr_bwd.launches,
+               small_conv_fwd=sc.small_conv_fwd.launches,
+               small_conv_dx=sc.small_conv_dx.launches,
+               warp_bwd_cuda=segsum.warp_bwd_cuda.launches)
+    return out
+
+
+def _delta(fn):
+    before = _graph_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _graph_counts()
+    return out, {k: v - before[k] for k, v in after.items()}
+
+
+def _pwc_flow_fns(cuda, monkeypatch, dtype):
+    """PWCNet with random weights: (padder, the graphed flow function, the
+    same network's eager one) at 128×192, in `dtype` compute."""
+    import dataclasses
+
+    from pcfa_tpu_torch import runtime
+
+    if dtype is torch.bfloat16:
+        monkeypatch.setenv("PCFA_COMPUTE_DTYPE", "bfloat16")
+    else:
+        monkeypatch.delenv("PCFA_COMPUTE_DTYPE", raising=False)
+    loaded = runtime.load_model("PWCNet", init_random=True, seed=0,
+                                device=cuda)
+    assert loaded.spec.capturable
+    eager = dataclasses.replace(loaded, spec=dataclasses.replace(
+        loaded.spec, capturable=False))
+    padder, graphed_fn = runtime.make_flow_fn(loaded, (128, 192))
+    _, eager_fn = runtime.make_flow_fn(eager, (128, 192))
+    return padder, graphed_fn, eager_fn
+
+
+def _pwc_inputs(seed, pairs=1, hw=(128, 192)):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.rand((pairs, *hw, 3), generator=gen).cuda()
+            for _ in range(3)]
+
+
+def _closure(flow_fn, x1, x2, g):
+    a, b = (x.detach().clone().requires_grad_(True) for x in (x1, x2))
+    flow = flow_fn(a, b)
+    return (flow.detach(), *torch.autograd.grad(flow, (a, b), g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-2)])
+def test_pwcnet_graph_replay_matches_eager(cuda, monkeypatch, dtype, tol):
+    """PWCNet's flow function replays CUDA graphs (its spec declares
+    `capturable`): the flow and the input gradients of replayed closures
+    and forwards match the same network's eager calls. The warp backward
+    and the split patch correlation add in float32 atomics in no fixed
+    order, so two eager calls differ too: by float32 rounding (1e-6 of
+    the scale) in float32, by a bf16 ulp where that flips a bf16 rounding
+    (1e-2). Each replayed closure advances the patch correlation's and
+    the warp's counters and every kernel's `.launches` by exactly what an
+    eager closure does (5, 5, 4 and the small conv's 11 and 11), and
+    `flow.graph_replays` by one, with no capture after the first."""
+    _, graphed_fn, eager_fn = _pwc_flow_fns(cuda, monkeypatch, dtype)
+    x1, x2, _ = _pwc_inputs(0)
+    g = torch.randn((1, 128, 192, 2), generator=torch.Generator()
+                    .manual_seed(1)).cuda()
+    _, first = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert first["flow.graph_captures"] == 1
+    for seed in (2, 3):
+        y1, y2, _ = _pwc_inputs(seed)
+        got, d_graph = _delta(lambda: _closure(graphed_fn, y1, y2, g))
+        want, d_eager = _delta(lambda: _closure(eager_fn, y1, y2, g))
+        for a, b in zip(got, want):
+            _close(a, b, tol)
+        assert d_graph.pop("flow.graph_replays") == 1
+        assert d_eager.pop("flow.graph_replays") == 0
+        assert d_graph == d_eager, (d_graph, d_eager)
+        assert d_eager["local_corr.fwd"] == d_eager["local_corr.bwd"] == 5
+        assert d_eager["warp.bwd"] == d_eager["warp_bwd_cuda"] == 4
+        assert d_eager["small_conv_fwd"] == d_eager["small_conv_dx"] == 11
+    with torch.no_grad():
+        got, d_graph = _delta(lambda: graphed_fn(y1, y2))
+        want, d_eager = _delta(lambda: eager_fn(y1, y2))
+        _close(got, want, tol)
+        assert d_graph.pop("flow.graph_captures") == 1  # forward-only key
+        assert d_graph.pop("flow.graph_replays") == 1
+        _, d_graph = _delta(lambda: graphed_fn(y1, y2))
+    assert d_graph.pop("flow.graph_replays") == 1
+    assert d_graph == {k: 0 for k in d_graph} | {
+        "local_corr.fwd": 5, "local_corr_fwd": 5, "small_conv_fwd": 11}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pwcnet_graph_replay_returns_its_own_tensors(cuda, monkeypatch,
+                                                      dtype):
+    """What a replay returns, the flow and the gradients that reach the
+    inputs, is no graph's static buffer: a second replay, on other
+    inputs, leaves the first call's flow and gradients as they were; the
+    same for a forward without gradient."""
+    _, graphed_fn, _ = _pwc_flow_fns(cuda, monkeypatch, dtype)
+    x1, x2, _ = _pwc_inputs(0)
+    y1, y2, _ = _pwc_inputs(1)
+    g = torch.ones((1, 128, 192, 2), device=cuda)
+    first = _closure(graphed_fn, x1, x2, g)
+    kept = [t.clone() for t in first]
+    second = _closure(graphed_fn, y1, y2, g)
+    for a, b, c in zip(first, kept, second):
+        assert torch.equal(a, b) and not torch.equal(a, c)
+    with torch.no_grad():
+        f1 = graphed_fn(x1, x2)
+        kept = f1.clone()
+        f2 = graphed_fn(y1, y2)
+    assert torch.equal(f1, kept) and not torch.equal(f1, f2)
+
+
+@pytest.mark.cuda
+def test_pwcnet_graphs_keyed_by_batch_size(cuda, monkeypatch):
+    """A new batch size captures once more, and each size keeps its
+    graphs: back at the first size nothing is captured. The replays at
+    the new size match the eager closure there (bf16: 1e-2, as above)."""
+    _, graphed_fn, eager_fn = _pwc_flow_fns(cuda, monkeypatch,
+                                            torch.bfloat16)
+    x1, x2, _ = _pwc_inputs(0, pairs=2)
+    g = torch.ones((2, 128, 192, 2), device=cuda)
+    _, d = _delta(lambda: _closure(graphed_fn, x1[:1], x2[:1], g[:1]))
+    assert d["flow.graph_captures"] == 1
+    _, d = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert d["flow.graph_captures"] == 1 and d["flow.graph_replays"] == 1
+    _, d = _delta(lambda: _closure(graphed_fn, x1[1:], x2[1:], g[1:]))
+    assert d["flow.graph_captures"] == 0 and d["flow.graph_replays"] == 1
+    got, d = _delta(lambda: _closure(graphed_fn, x2, x1, g))
+    assert d["flow.graph_captures"] == 0 and d["flow.graph_replays"] == 1
+    for a, b in zip(got, _closure(eager_fn, x2, x1, g)):
+        _close(a, b, 1e-2)
+
+
+@pytest.mark.cuda
+def test_pwcnet_graphs_own_what_their_kernels_read(cuda, monkeypatch):
+    """A replay reads the addresses its capture saw. The small conv's
+    packed weights belong to a cache that evicts by clearing; the capture
+    holds the ones its kernels read. With the cache cleared and its
+    memory handed out again, filled with NaN, the replayed closure still
+    matches the eager one (bf16: 1e-2, as above)."""
+    import gc
+
+    from pcfa_tpu_torch.utils import graphs
+
+    _, graphed_fn, eager_fn = _pwc_flow_fns(cuda, monkeypatch,
+                                            torch.bfloat16)
+    x1, x2, _ = _pwc_inputs(0)
+    g = torch.ones((1, 128, 192, 2), device=cuda)
+    _, d = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert d["flow.graph_captures"] == 1
+    sizes = [hit[2].numel() for hit in sc._packed.values()]
+    sc._packed.clear()
+    gc.collect()
+    # the warm-up packed on the network's side stream, whose freed blocks
+    # only allocations on that stream take
+    side = next(c.cell_contents.stream for c in graphed_fn.__closure__
+                if isinstance(c.cell_contents, graphs.GraphedNetwork))
+    with torch.cuda.stream(side):
+        junk = [torch.full((n,), float("nan"), dtype=torch.bfloat16,
+                           device=cuda) for n in sizes for _ in range(2)]
+    torch.cuda.synchronize()
+    got, d = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert d["flow.graph_captures"] == 0 and d["flow.graph_replays"] == 1
+    del junk
+    for a, b in zip(got, _closure(eager_fn, x1, x2, g)):
+        _close(a, b, 1e-2)
+
+
+def _kernel_events(prof) -> list[str]:
+    """The names of the device kernels a profile saw (`benchmark/
+    timeline.py` reads the same events)."""
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pwcnet_graph_replay_credits_the_launches_its_trace_shows(
+        cuda, monkeypatch, dtype):
+    """A replay runs no kernel wrapper, so it credits each wrapper's
+    `.launches` from its capture's tally: the device trace of a replayed
+    closure holds, under each kernel's name, as many launches as were
+    credited (the names `benchmark/kernels/*.py` match)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, graphed_fn, _ = _pwc_flow_fns(cuda, monkeypatch, dtype)
+    x1, x2, _ = _pwc_inputs(0)
+    g = torch.ones((1, 128, 192, 2), device=cuda)
+    _closure(graphed_fn, x1, x2, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, d = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert d["flow.graph_replays"] == 1 and d["flow.graph_captures"] == 0
+    names = _kernel_events(prof)
+
+    def seen(*kernels):
+        return sum(any(k in n for k in kernels) for n in names)
+
+    assert seen("corr_fwd_kernel") == d["local_corr_fwd"] == 5
+    assert seen("corr_bwd_kernel") == d["local_corr_bwd"] == 5
+    assert seen("warp_bwd_kernel", "warp_bwd_narrow_kernel") == \
+        d["warp_bwd_cuda"] == 4
+    assert seen("conv_tc_kernel", "conv_fwd_f32", "conv_dx_f32") == \
+        d["small_conv_fwd"] + d["small_conv_dx"] == 22
+
+
+@pytest.mark.cuda
+def test_raft_flow_fn_never_captures(cuda):
+    """RAFT's spec does not declare `capturable` (its refinement loop runs
+    under checkpoint recomputation and picks its correlation path on the
+    host): its flow function calls the module, and captures and replays
+    nothing."""
+    from pcfa_tpu_torch import runtime
+
+    loaded = runtime.load_model("RAFT", init_random=True, seed=0,
+                                device=cuda, iters=2)
+    assert not loaded.spec.capturable
+    _, flow_fn = runtime.make_flow_fn(loaded, (128, 128))
+    x1, x2, _ = _pwc_inputs(0, hw=(128, 128))
+    g = torch.ones((1, 128, 128, 2), device=cuda)
+    _, d = _delta(lambda: _closure(flow_fn, x1, x2, g))
+    assert d["flow.graph_captures"] == d["flow.graph_replays"] == 0

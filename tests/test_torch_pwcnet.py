@@ -233,3 +233,31 @@ def test_runtime_pwcnet_flow_fn_on_cpu(monkeypatch):
     _, flow_fn16 = runtime.make_flow_fn(loaded, (100, 130), "kitti")
     flow16 = flow_fn16(x1, x2)
     assert flow16.dtype == torch.float32 and torch.isfinite(flow16).all()
+
+
+def test_pwcnet_flow_fn_on_cpu_takes_the_eager_path():
+    """PWCNet's spec declares `capturable` (its forward and backward can
+    be replayed from CUDA graphs on the card) and RAFT's does not; on the
+    CPU the flow function calls the module directly: no capture, no
+    replay, and the module's own flow and input gradient."""
+    from pcfa_tpu_torch.models import get_spec
+    from pcfa_tpu_torch.utils import profiling
+
+    assert get_spec("PWCNet").capturable and not get_spec("RAFT").capturable
+    loaded = runtime.load_model("PWCNet", init_random=True, seed=1,
+                                device="cpu")
+    padder, flow_fn = runtime.make_flow_fn(loaded, (64, 128))
+    gen = torch.Generator().manual_seed(0)
+    x1, x2 = (torch.rand((1, 64, 128, 3), generator=gen).requires_grad_(True)
+              for _ in range(2))
+    before = profiling.counters()
+    flow = flow_fn(x1, x2)
+    g = torch.autograd.grad(flow.square().sum(), (x1, x2))
+    after = profiling.counters()
+    for name in ("flow.graph_captures", "flow.graph_replays"):
+        assert after.get(name, 0) == before.get(name, 0), name
+    ref = padder.unpad(loaded.module(x1, x2))
+    g_ref = torch.autograd.grad(ref.square().sum(), (x1, x2))
+    assert torch.equal(flow, ref)
+    for a, b in zip(g, g_ref):
+        assert torch.equal(a, b)

@@ -171,6 +171,24 @@ def test_counters_are_host_integers(monkeypatch):
                 if e.name().startswith(("aten::", "cuda"))]
 
 
+def test_every_counted_kernel_wrapper_is_registered():
+    """Each kernel wrapper of `pcfa_tpu_torch/ops` that counts its launches
+    (`.launches`) is marked by `profiling.launch_counted`, the list whose
+    counts a CUDA-graph replay credits (`utils/graphs.py`)."""
+    import importlib
+    import pkgutil
+
+    from pcfa_tpu_torch import ops
+
+    found = set()
+    for m in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{m.name}")
+        found |= {f for f in vars(mod).values()
+                  if callable(f) and hasattr(f, "launches")}
+    assert len(found) >= 9
+    assert found <= set(profiling.launch_counted_wrappers())
+
+
 def test_every_span_appears_nested_as_documented(traced):
     events, _ = traced
     spans = [e for e in events if e.name in PARENTS or e.name in BACKWARD]
