@@ -45,12 +45,16 @@
 // coefficients top and bot sit in shared memory; each thread owns 8
 // columns (in 16-byte pieces laid out as in the products) and streams the
 // valid rows of S and Y, four rows of loads in flight, keeping both sums
-// in registers; it then writes d once. Where n is not a multiple of 8, or a
-// buffer is not 16-byte aligned, both kernels take a scalar path (one
-// column per lane and step) with the same arithmetic.
+// in registers; it then writes d once. Both kernels take only n a multiple
+// of 8 and S, Y and the vectors 16-byte aligned, as every main path gives
+// them (n is 2·3·H·W, or 3·H·W for a joint δ, with H and W padded to ÷8 or
+// ÷64; the ring and vectors are fresh allocations); the wrappers and the
+// entry points refuse anything else.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -125,63 +129,43 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
   else return *q;
 }
 
-template <bool kStream, typename T>
-__device__ __forceinline__ T ld1(const T* p) {
-  if constexpr (kStream) return __ldcs(p);
-  else return *p;
-}
-
-// E consecutive storage elements at p (16-byte aligned when E > 1) as C;
-// `kStream` reads around the L1 and marks the lines evict-first (the ring
-// is read once per pass)
+// the E storage elements of the 16-byte piece at p as C; `kStream` reads
+// around the L1 and marks the lines evict-first (the ring is read once per
+// pass)
 template <int E, bool kStream, typename C>
 __device__ __forceinline__ void load_piece(const bf16_t* p, C (&v)[E]) {
-  if constexpr (E == 1) {
-    v[0] = C(__uint_as_float(uint32_t(ld1<kStream>(p)) << 16));
-  } else {
-    static_assert(E == 8, "a 16-byte piece of bf16 holds 8 values");
-    const uint4 w = ld16<kStream>(p);
-    const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+  static_assert(E == 8, "a 16-byte piece of bf16 holds 8 values");
+  const uint4 w = ld16<kStream>(p);
+  const uint32_t h[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = C(__uint_as_float(h[i] << 16));
-      v[2 * i + 1] = C(__uint_as_float(h[i] & 0xffff0000u));
-    }
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = C(__uint_as_float(h[i] << 16));
+    v[2 * i + 1] = C(__uint_as_float(h[i] & 0xffff0000u));
   }
 }
 
 template <int E, bool kStream, typename C>
 __device__ __forceinline__ void load_piece(const float* p, C (&v)[E]) {
-  if constexpr (E == 1) {
-    v[0] = C(ld1<kStream>(p));
-  } else {
-    static_assert(E == 4, "a 16-byte piece of float32 holds 4 values");
-    const uint4 w = ld16<kStream>(p);
-    v[0] = C(__uint_as_float(w.x));
-    v[1] = C(__uint_as_float(w.y));
-    v[2] = C(__uint_as_float(w.z));
-    v[3] = C(__uint_as_float(w.w));
-  }
+  static_assert(E == 4, "a 16-byte piece of float32 holds 4 values");
+  const uint4 w = ld16<kStream>(p);
+  v[0] = C(__uint_as_float(w.x));
+  v[1] = C(__uint_as_float(w.y));
+  v[2] = C(__uint_as_float(w.z));
+  v[3] = C(__uint_as_float(w.w));
 }
 
 template <int E, bool kStream, typename C>
 __device__ __forceinline__ void load_piece(const double* p, C (&v)[E]) {
-  if constexpr (E == 1) {
-    v[0] = C(ld1<kStream>(p));
-  } else {
-    static_assert(E == 2, "a 16-byte piece of float64 holds 2 values");
-    const uint4 w = ld16<kStream>(p);
-    v[0] = C(__hiloint2double(int(w.y), int(w.x)));
-    v[1] = C(__hiloint2double(int(w.w), int(w.z)));
-  }
+  static_assert(E == 2, "a 16-byte piece of float64 holds 2 values");
+  const uint4 w = ld16<kStream>(p);
+  v[0] = C(__hiloint2double(int(w.y), int(w.x)));
+  v[1] = C(__hiloint2double(int(w.w), int(w.z)));
 }
 
-// E consecutive values of g's dtype at p, aligned to E values
+// E (2, 4 or 8) consecutive values of g's dtype at p, aligned to E values
 template <int E>
 __device__ __forceinline__ void load_x(const float* p, float (&v)[E]) {
-  if constexpr (E == 1) {
-    v[0] = *p;
-  } else if constexpr (E == 2) {
+  if constexpr (E == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x; v[1] = t.y;
   } else {
@@ -198,22 +182,16 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[E]) {
 
 template <int E>
 __device__ __forceinline__ void load_x(const double* p, double (&v)[E]) {
-  if constexpr (E == 1) {
-    v[0] = *p;
-  } else {
 #pragma unroll
-    for (int i = 0; i < E / 2; ++i) {
-      const double2 t = reinterpret_cast<const double2*>(p)[i];
-      v[2 * i] = t.x; v[2 * i + 1] = t.y;
-    }
+  for (int i = 0; i < E / 2; ++i) {
+    const double2 t = reinterpret_cast<const double2*>(p)[i];
+    v[2 * i] = t.x; v[2 * i + 1] = t.y;
   }
 }
 
 template <int E>
 __device__ __forceinline__ void store_x(float* p, const float (&v)[E]) {
-  if constexpr (E == 1) {
-    *p = v[0];
-  } else if constexpr (E == 2) {
+  if constexpr (E == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
 #pragma unroll
@@ -225,23 +203,22 @@ __device__ __forceinline__ void store_x(float* p, const float (&v)[E]) {
 
 template <int E>
 __device__ __forceinline__ void store_x(double* p, const double (&v)[E]) {
-  if constexpr (E == 1) {
-    *p = v[0];
-  } else {
 #pragma unroll
-    for (int i = 0; i < E / 2; ++i)
-      reinterpret_cast<double2*>(p)[i] = make_double2(v[2 * i], v[2 * i + 1]);
-  }
+  for (int i = 0; i < E / 2; ++i)
+    reinterpret_cast<double2*>(p)[i] = make_double2(v[2 * i], v[2 * i + 1]);
 }
 
-// The layout of a warp's step of 32·V columns: V == 8 cuts it into pieces
-// of 16 bytes of the storage dtype (E values each, P = V / E pieces a
-// lane), piece q of lane l at q·32·E + l·E, so each load instruction of the
-// warp reads 512 contiguous bytes; V == 1 gives lane l column l.
-template <typename T, int V>
+// The layout of a warp's step of 32·kCols columns: pieces of 16 bytes of
+// the storage dtype (E values each, P = kCols / E pieces a lane), piece q
+// of lane l at q·32·E + l·E, so each load instruction of the warp reads 512
+// contiguous bytes. With n, a slab and a sub-chunk all multiples of kCols,
+// a piece lies wholly inside or wholly past each bound.
+constexpr int kCols = 8;  // columns a lane owns per step
+
+template <typename T>
 struct Pieces {
-  static constexpr int E = V == 1 ? 1 : 16 / int(sizeof(T));
-  static constexpr int P = V / E;
+  static constexpr int E = 16 / int(sizeof(T));
+  static constexpr int P = kCols / E;
   __device__ static int offset(int q, int lane) {
     return q * 32 * E + lane * E;
   }
@@ -253,7 +230,7 @@ __device__ __forceinline__ int valid_rows(int64_t count, int m) {
 
 // ------------------------------------------------------------- kernels ---
 
-template <typename T, typename X, int V>
+template <typename T, typename X>
 __global__ void __launch_bounds__(kThreads)
 hist_products(const T* __restrict__ S, const T* __restrict__ Y,
               const X* __restrict__ g, const X* __restrict__ yn,
@@ -261,7 +238,7 @@ hist_products(const T* __restrict__ S, const T* __restrict__ Y,
               typename AccOf<T>::type* __restrict__ ws, int m, int64_t n,
               int64_t per, int chunk) {
   using A = typename AccOf<T>::type;
-  using L = Pieces<T, V>;
+  using L = Pieces<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const stage = reinterpret_cast<T*>(smem);  // g | y | s, chunk each
   A* const part = reinterpret_cast<A*>(smem + size_t(3) * chunk * sizeof(T));
@@ -288,7 +265,7 @@ hist_products(const T* __restrict__ S, const T* __restrict__ Y,
       const T* const yrow = Y + (int64_t(b) * m + r) * n + c0;
       A a0 = 0, a1 = 0, a2 = 0, a3 = 0, a4 = 0;
 #pragma unroll 2
-      for (int j = 0; j < len; j += 32 * V) {
+      for (int j = 0; j < len; j += 32 * kCols) {
 #pragma unroll
         for (int q = 0; q < L::P; ++q) {
           const int off = j + L::offset(q, lane);
@@ -347,14 +324,14 @@ reduce_slabs(const A* __restrict__ ws, A* __restrict__ out, int slabs, int k) {
   }
 }
 
-template <typename T, typename X, int V>
+template <typename T, typename X>
 __global__ void __launch_bounds__(kThreads)
 hist_combine(const T* __restrict__ S, const T* __restrict__ Y,
              const X* __restrict__ g, const X* __restrict__ top,
              const X* __restrict__ bot, const X* __restrict__ gamma,
              const int64_t* __restrict__ count, X* __restrict__ d, int m,
              int64_t n) {
-  using L = Pieces<T, V>;
+  using L = Pieces<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   X* const ct = reinterpret_cast<X*>(smem);
   X* const cb = ct + m;
@@ -367,7 +344,7 @@ hist_combine(const T* __restrict__ S, const T* __restrict__ Y,
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t base = (int64_t(blockIdx.x) * kWarps + warp) * 32 * V;
+  const int64_t base = (int64_t(blockIdx.x) * kWarps + warp) * 32 * kCols;
   bool ok[L::P];
   bool any = false;
 #pragma unroll
@@ -437,17 +414,17 @@ int allow_smem(Kernel kern, int smem, int& smem_set) {
   return 0;
 }
 
-template <typename T, typename X, int V>
+template <typename T, typename X>
 int plan(int m, int* blocks_per_sm) {
   static int smem_set = 48 * 1024;
   const int smem = products_smem<T>(m);
-  int err = allow_smem(hist_products<T, X, V>, smem, smem_set);
+  int err = allow_smem(hist_products<T, X>, smem, smem_set);
   if (err) return err;
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, hist_products<T, X, V>, kThreads, smem));
+      blocks_per_sm, hist_products<T, X>, kThreads, smem));
 }
 
-template <typename T, typename X, int V>
+template <typename T, typename X>
 int products(const void* S, const void* Y, const void* g, const void* yn,
              const void* sn, const int64_t* count, void* ws, void* out,
              int B, int m, int64_t n, int slabs, int64_t per,
@@ -455,9 +432,9 @@ int products(const void* S, const void* Y, const void* g, const void* yn,
   using A = typename AccOf<T>::type;
   static int smem_set = 48 * 1024;
   const int smem = products_smem<T>(m);
-  int err = allow_smem(hist_products<T, X, V>, smem, smem_set);
+  int err = allow_smem(hist_products<T, X>, smem, smem_set);
   if (err) return err;
-  hist_products<T, X, V><<<dim3(slabs, B), kThreads, smem, st>>>(
+  hist_products<T, X><<<dim3(slabs, B), kThreads, smem, st>>>(
       static_cast<const T*>(S), static_cast<const T*>(Y),
       static_cast<const X*>(g), static_cast<const X*>(yn),
       static_cast<const X*>(sn), count, static_cast<A*>(ws), m, n, per,
@@ -470,16 +447,16 @@ int products(const void* S, const void* Y, const void* g, const void* yn,
   return int(cudaGetLastError());
 }
 
-template <typename T, typename X, int V>
+template <typename T, typename X>
 int combine(const void* S, const void* Y, const void* g, const void* top,
             const void* bot, const void* gamma, const int64_t* count, void* d,
             int B, int m, int64_t n, cudaStream_t st) {
   static int smem_set = 48 * 1024;
   const int smem = 2 * m * int(sizeof(X));
-  int err = allow_smem(hist_combine<T, X, V>, smem, smem_set);
+  int err = allow_smem(hist_combine<T, X>, smem, smem_set);
   if (err) return err;
-  const int64_t per_block = int64_t(kThreads) * V;
-  hist_combine<T, X, V><<<dim3(unsigned((n + per_block - 1) / per_block), B),
+  const int64_t per_block = int64_t(kThreads) * kCols;
+  hist_combine<T, X><<<dim3(unsigned((n + per_block - 1) / per_block), B),
                           kThreads, smem, st>>>(
       static_cast<const T*>(S), static_cast<const T*>(Y),
       static_cast<const X*>(g), static_cast<const X*>(top),
@@ -489,71 +466,74 @@ int combine(const void* S, const void* Y, const void* g, const void* top,
 }
 
 // storage codes: 0 bf16, 1 float32, 2 float64; g's codes: 1 float32,
-// 2 float64; vec 8 (16-byte pieces) or 1 (scalar)
-template <template <typename, typename, int> class F, typename T,
+// 2 float64
+template <template <typename, typename> class F, typename T,
           typename... Args>
-int by_x(int x_code, int vec, Args... args) {
-  if (x_code == 1)
-    return vec == 8 ? F<T, float, 8>::run(args...)
-                    : F<T, float, 1>::run(args...);
-  return vec == 8 ? F<T, double, 8>::run(args...)
-                  : F<T, double, 1>::run(args...);
+int by_x(int x_code, Args... args) {
+  return x_code == 1 ? F<T, float>::run(args...)
+                     : F<T, double>::run(args...);
 }
 
-template <template <typename, typename, int> class F, typename... Args>
-int dispatch(int t_code, int x_code, int vec, Args... args) {
+template <template <typename, typename> class F, typename... Args>
+int dispatch(int t_code, int x_code, Args... args) {
   switch (t_code) {
-    case 0: return by_x<F, bf16_t>(x_code, vec, args...);
-    case 1: return by_x<F, float>(x_code, vec, args...);
-    default: return by_x<F, double>(x_code, vec, args...);
+    case 0: return by_x<F, bf16_t>(x_code, args...);
+    case 1: return by_x<F, float>(x_code, args...);
+    default: return by_x<F, double>(x_code, args...);
   }
 }
 
-template <typename T, typename X, int V>
+template <typename T, typename X>
 struct Plan {
-  static int run(int m, int* blocks) { return plan<T, X, V>(m, blocks); }
+  static int run(int m, int* blocks) { return plan<T, X>(m, blocks); }
 };
-template <typename T, typename X, int V>
+template <typename T, typename X>
 struct Products {
   template <typename... Args>
-  static int run(Args... args) { return products<T, X, V>(args...); }
+  static int run(Args... args) { return products<T, X>(args...); }
 };
-template <typename T, typename X, int V>
+template <typename T, typename X>
 struct Combine {
   template <typename... Args>
-  static int run(Args... args) { return combine<T, X, V>(args...); }
+  static int run(Args... args) { return combine<T, X>(args...); }
 };
 
-bool codes_ok(int t_code, int x_code, int vec, int B, int m, int64_t n) {
+bool codes_ok(int t_code, int x_code, int B, int m, int64_t n) {
   return t_code >= 0 && t_code <= 2 && (x_code == 1 || x_code == 2) &&
-         (vec == 1 || (vec == 8 && n % 8 == 0)) && B > 0 && B <= 65535 &&
-         m > 0 && n > 0;
+         B > 0 && B <= 65535 && m > 0 && n > 0 && n % kCols == 0;
+}
+
+// the buffers the kernels read and write in 16-byte pieces
+bool aligned(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace
 
 // Resident blocks of the products kernel per SM for history size m (the
 // wrapper plans its slabs from it).
-extern "C" int pcfa_lbfgs_hist_plan(int t_code, int x_code, int vec, int m,
+extern "C" int pcfa_lbfgs_hist_plan(int t_code, int x_code, int m,
                                     int* blocks_per_sm) {
-  if (!codes_ok(t_code, x_code, vec, 1, m, 8) || blocks_per_sm == nullptr)
+  if (!codes_ok(t_code, x_code, 1, m, kCols) || blocks_per_sm == nullptr)
     return int(cudaErrorInvalidValue);
-  return dispatch<Plan>(t_code, x_code, vec, m, blocks_per_sm);
+  return dispatch<Plan>(t_code, x_code, m, blocks_per_sm);
 }
 
 // The products (B, 5, m) in float32 (float64 for a float64 history), with
 // `ws` a (B, slabs, 5, m) workspace of that dtype; slab i covers columns
-// [i·per, (i+1)·per) ∩ [0, n).
+// [i·per, (i+1)·per) ∩ [0, n), per a multiple of 8.
 extern "C" int pcfa_lbfgs_hist_products(
     const void* S, const void* Y, const void* g, const void* yn,
     const void* sn, const void* count, void* ws, void* out, int t_code,
-    int x_code, int vec, int B, int m, int64_t n, int slabs, int64_t per,
+    int x_code, int B, int m, int64_t n, int slabs, int64_t per,
     void* stream) {
-  if (!codes_ok(t_code, x_code, vec, B, m, n) || slabs <= 0 || per <= 0 ||
-      per % vec != 0 || int64_t(slabs) * per < n ||
-      int64_t(slabs - 1) * per >= n)
+  if (!codes_ok(t_code, x_code, B, m, n) || !aligned({S, Y, g, yn, sn}) ||
+      slabs <= 0 || per <= 0 || per % kCols != 0 ||
+      int64_t(slabs) * per < n || int64_t(slabs - 1) * per >= n)
     return int(cudaErrorInvalidValue);
-  return dispatch<Products>(t_code, x_code, vec, S, Y, g, yn, sn,
+  return dispatch<Products>(t_code, x_code, S, Y, g, yn, sn,
                             static_cast<const int64_t*>(count), ws, out, B,
                             m, n, slabs, per,
                             static_cast<cudaStream_t>(stream));
@@ -563,10 +543,10 @@ extern "C" int pcfa_lbfgs_hist_products(
 extern "C" int pcfa_lbfgs_hist_combine(
     const void* S, const void* Y, const void* g, const void* top,
     const void* bot, const void* gamma, const void* count, void* d,
-    int t_code, int x_code, int vec, int B, int m, int64_t n, void* stream) {
-  if (!codes_ok(t_code, x_code, vec, B, m, n))
+    int t_code, int x_code, int B, int m, int64_t n, void* stream) {
+  if (!codes_ok(t_code, x_code, B, m, n) || !aligned({S, Y, g, d}))
     return int(cudaErrorInvalidValue);
-  return dispatch<Combine>(t_code, x_code, vec, S, Y, g, top, bot, gamma,
+  return dispatch<Combine>(t_code, x_code, S, Y, g, top, bot, gamma,
                            static_cast<const int64_t*>(count), d, B, m, n,
                            static_cast<cudaStream_t>(stream));
 }

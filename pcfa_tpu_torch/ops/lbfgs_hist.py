@@ -25,12 +25,11 @@ ms for the combine at 3.35 TB/s.
 The products kernel's slabs of columns are planned here: about `_WAVES`
 waves of the card's resident blocks over the B pairs, each slab a multiple
 of 8 columns, so the sums' order, and so their bits, depend only on the
-card and the shapes. The kernels take 16-byte pieces where n is a multiple
-of 8 and every buffer is 16-byte aligned, else a scalar path.
+card and the shapes. The kernels read 16-byte pieces: they take n a
+multiple of 8 and 16-byte aligned buffers, as every main path gives them.
 
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
-raise. Each launch of the combine, which ends a direction, adds one to the
-counter `lbfgs.direction.kernel` (`utils/profiling.py`).
+raise.
 """
 
 from __future__ import annotations
@@ -55,15 +54,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    "pcfa_lbfgs_hist_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
-    "pcfa_lbfgs_hist_products": [_P] * 8 + [_I, _I, _I, _I, _I, _L, _I, _L,
-                                            _P],
-    "pcfa_lbfgs_hist_combine": [_P] * 8 + [_I, _I, _I, _I, _I, _L, _P],
+    "pcfa_lbfgs_hist_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    "pcfa_lbfgs_hist_products": [_P] * 8 + [_I, _I, _I, _I, _L, _I, _L, _P],
+    "pcfa_lbfgs_hist_combine": [_P] * 8 + [_I, _I, _I, _I, _L, _P],
 }
 _HIST_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
 _X_CODES = {torch.float32: 1, torch.float64: 2}
 _WAVES = 2          # resident-block waves the products' slabs fill
-_ALIGN = 8          # a slab's columns: a multiple of a 16-byte bf16 piece
+_ALIGN = 8          # n and a slab's columns: whole 16-byte bf16 pieces
 _MIN_SLAB = 256     # ... and at least one warp step (32 lanes × 8)
 _MAX_HISTORY = 4096
 
@@ -130,7 +128,7 @@ def hist_combine_plain(s_buf, y_buf, grad, top, bot, gamma,
 
 
 def _check(s_buf, y_buf, vecs, count, what):
-    """Shapes, dtypes and devices the kernels take; returns (B, m, n)."""
+    """What the kernels take, else ValueError naming it; returns (B, m, n)."""
     B, m, n = s_buf.shape
     dev = s_buf.device
     if (y_buf.shape != s_buf.shape or y_buf.dtype != s_buf.dtype
@@ -149,24 +147,21 @@ def _check(s_buf, y_buf, vecs, count, what):
         raise ValueError(f"{what}: needs an int64 count (B,) on S's device")
     if not 0 < m <= _MAX_HISTORY:
         raise ValueError(f"{what}: history size {m} outside 1..{_MAX_HISTORY}")
+    if n % _ALIGN:
+        raise ValueError(f"{what}: n = {n} is not a multiple of {_ALIGN}")
+    for name, t in zip("SYgys", [s_buf, y_buf, *vecs]):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     return B, m, n
 
 
-def _vec(n: int, tensors) -> int:
-    """8 (16-byte pieces) when n is a multiple of 8 and every buffer is
-    16-byte aligned, else 1 (scalar)."""
-    ok = n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-    return 8 if ok else 1
-
-
 @functools.lru_cache(maxsize=None)
-def _resident(device: int, t_code: int, x_code: int, vec: int,
-              m: int) -> int:
+def _resident(device: int, t_code: int, x_code: int, m: int) -> int:
     """Resident blocks of the products kernel on the card."""
     lib = _build.library("lbfgs_hist", _SIGNATURES)
     per_sm = _I(0)
     with torch.cuda.device(device):
-        _build.check(lib.pcfa_lbfgs_hist_plan(t_code, x_code, vec, m,
+        _build.check(lib.pcfa_lbfgs_hist_plan(t_code, x_code, m,
                                               ctypes.byref(per_sm)),
                      "pcfa_lbfgs_hist_plan")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -195,16 +190,15 @@ def hist_products_cuda(s_buf, y_buf, grad, y, s, count) -> torch.Tensor:
     B, m, n = _check(s_buf, y_buf, vecs, count, "L-BFGS history products")
     acc = torch.promote_types(s_buf.dtype, torch.float32)
     codes = _HIST_CODES[s_buf.dtype], _X_CODES[vecs[0].dtype]
-    vec = _vec(n, [s_buf, y_buf, *vecs])
     dev = s_buf.device
-    slabs, per = plan_slabs(B, n, _resident(dev.index, *codes, vec, m))
+    slabs, per = plan_slabs(B, n, _resident(dev.index, *codes, m))
     ws = torch.empty((B, slabs, 5, m), dtype=acc, device=dev)
     out = torch.empty((B, 5, m), dtype=acc, device=dev)
     lib = _build.library("lbfgs_hist", _SIGNATURES)
     err = lib.pcfa_lbfgs_hist_products(
         s_buf.data_ptr(), y_buf.data_ptr(), *(v.data_ptr() for v in vecs),
-        count.data_ptr(), ws.data_ptr(), out.data_ptr(), *codes, vec, B, m,
-        n, slabs, per, _stream(s_buf))
+        count.data_ptr(), ws.data_ptr(), out.data_ptr(), *codes, B, m, n,
+        slabs, per, _stream(s_buf))
     _build.check(err, "pcfa_lbfgs_hist_products")
     hist_products_cuda.launches += 1
     return out
@@ -231,12 +225,9 @@ def hist_combine_cuda(s_buf, y_buf, grad, top, bot, gamma,
         s_buf.data_ptr(), y_buf.data_ptr(), grad.data_ptr(),
         coefs[0].data_ptr(), coefs[1].data_ptr(), gamma.data_ptr(),
         count.data_ptr(), d.data_ptr(), _HIST_CODES[s_buf.dtype],
-        _X_CODES[grad.dtype], _vec(n, [s_buf, y_buf, grad, d]), B, m, n,
-        _stream(s_buf))
+        _X_CODES[grad.dtype], B, m, n, _stream(s_buf))
     _build.check(err, "pcfa_lbfgs_hist_combine")
     hist_combine_cuda.launches += 1
-    # the combine ends a direction: one computed by the kernels
-    profiling.count("lbfgs.direction.kernel")
     return d
 
 

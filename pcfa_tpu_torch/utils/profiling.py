@@ -18,11 +18,9 @@
   (for a network replayed from CUDA graphs, `utils/graphs.py`: input keys
   captured, a closure's forward and backward graphs counted as one, and
   flow-function calls answered by a replay), `lbfgs.iterations`
-  (`lbfgs_iteration` calls), `lbfgs.direction.kernel` (compact directions
-  computed by the history kernels of `ops/lbfgs_hist.py`, on the card:
-  launches of its combine),
-  `raft.corr_impl.<impl>` (RAFT and GMA forwards by the correlation
-  path `resolve_corr_impl` chose), `local_corr.fwd` and `local_corr.bwd`
+  (`lbfgs_iteration` calls), `raft.corr_impl.<impl>` (RAFT and GMA
+  forwards by the correlation path `resolve_corr_impl` chose),
+  `local_corr.fwd` and `local_corr.bwd`
   (the patch correlation's autograd forwards and backwards,
   `ops/local_corr.py`: one kernel launch each) and `warp.bwd` (the
   packed sampler's backwards, `ops/segsum.warp_bwd`: on the card one

@@ -1029,6 +1029,9 @@ def test_clip01_on_card(cuda, dtype):
 HIST_M = 5
 HIST_TOL = {torch.bfloat16: (1e-5, 1e-6), torch.float32: (1e-5, 1e-6),
             torch.float64: (1e-12, 1e-14)}   # (products, combine)
+# what the wrappers say of the layouts the kernels do not take
+HIST_REFUSED = {"scalar": "is not a multiple of 8",
+                "offset": "S is not 16-byte aligned"}
 
 
 def _hist_case(rng, dev, dtype, pairs, count, n, layout):
@@ -1078,15 +1081,26 @@ def test_lbfgs_hist_kernels_match_plain(rng, cuda, dtype, pairs, count, n,
     """Both passes against the plain versions on a ring that is empty,
     partial, full and wrapped (count 0, 3, 5, 12 of 5 rows; the middle of
     three pairs filled to another count), for bf16, float32 and float64
-    histories, with n not a multiple of 8 (scalar path), a multiple
-    (16-byte pieces) and S, Y not 16-byte aligned (scalar path). The rows
-    past the fill hold NaN: the kernels never read them. Two launches give
-    the same bits."""
+    histories. With n a multiple of 8 ('pieces') the kernels run; the rows
+    past the fill hold NaN: they never read them. Two launches give the
+    same bits. With n not a multiple of 8 ('scalar') or S, Y not 16-byte
+    aligned ('offset') the dispatch sends the card's tensors to the kernels
+    all the same, and their wrappers refuse them, naming which, before any
+    launch."""
     S, Y, vecs, cnt, zeroed, top, bot, gamma = _hist_case(
         rng, cuda, dtype, pairs, count, n, layout)
-    vec = lh._vec(n, [S, Y, *vecs])
-    assert vec == (8 if layout == "pieces" else 1)
     tol_p, tol_c = HIST_TOL[dtype]
+
+    if layout in HIST_REFUSED:
+        launches = (lh.hist_products_cuda.launches,
+                    lh.hist_combine_cuda.launches)
+        with pytest.raises(ValueError, match=HIST_REFUSED[layout]):
+            lh.hist_products(S, Y, *vecs, cnt)
+        with pytest.raises(ValueError, match=HIST_REFUSED[layout]):
+            lh.hist_combine(S, Y, vecs[0], top, bot, gamma, cnt)
+        assert (lh.hist_products_cuda.launches,
+                lh.hist_combine_cuda.launches) == launches
+        return
 
     before = lh.hist_products_cuda.launches
     got = lh.hist_products(S, Y, *vecs, cnt)
@@ -1118,6 +1132,31 @@ def test_lbfgs_hist_kernels_match_plain(rng, cuda, dtype, pairs, count, n,
     err = (d.double() - ref.double()).abs()
     assert bool((err <= tol_c * mags.double() + 1e-30).all()), \
         float((err / mags.double().clamp(min=1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,layout", [(4096 * 3 + 5, "scalar"),
+                                      (4096 * 3 + 8, "pieces"),
+                                      (4096 * 3 + 8, "offset")])
+def test_lbfgs_hist_entry_points_refuse_what_the_kernels_do_not_take(
+        rng, cuda, monkeypatch, n, layout):
+    """Past the wrappers' checks (taken out here), the C entry points
+    return cudaErrorInvalidValue (1) for an n not a multiple of 8 and for
+    S, Y not 16-byte aligned, and launch the same call in the kernels'
+    layout."""
+    S, Y, vecs, cnt, _, top, bot, gamma = _hist_case(
+        rng, cuda, torch.bfloat16, 1, 3, n, layout)
+    monkeypatch.setattr(lh, "_check", lambda S, *_: S.shape)
+    calls = (lambda: lh.hist_products_cuda(S, Y, *vecs, cnt),
+             lambda: lh.hist_combine_cuda(S, Y, vecs[0], top, bot, gamma,
+                                          cnt))
+    for call in calls:
+        if layout in HIST_REFUSED:
+            with pytest.raises(RuntimeError, match="cudaError 1$"):
+                call()
+        else:
+            call()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -1175,9 +1214,8 @@ def test_lbfgs_compact_trajectory_on_card_matches_plain(rng, cuda, dtype,
     bf16 ring amplifies it most in the iterate near the minimum (on the
     CPU, the plain versions summed in float64 instead of float32 moved it
     by 3.8e-4 of its scale, the losses by 2e-7). Every direction went
-    through the kernels."""
+    through the kernels: one launch of each a direction."""
     from pcfa_tpu_torch.attack import lbfgs
-    from pcfa_tpu_torch.utils import profiling
 
     vg, x0 = _quadratic(rng, cuda, dtype, 2, 4096 * 3 + 8)
 
@@ -1190,10 +1228,8 @@ def test_lbfgs_compact_trajectory_on_card_matches_plain(rng, cuda, dtype,
             losses.append(loss)
         return torch.stack(losses, 1), state.x
 
-    before = profiling.counters().get("lbfgs.direction.kernel", 0)
     launches = lh.hist_products_cuda.launches, lh.hist_combine_cuda.launches
     losses, x = run()
-    assert profiling.counters()["lbfgs.direction.kernel"] == before + 12
     assert (lh.hist_products_cuda.launches - launches[0],
             lh.hist_combine_cuda.launches - launches[1]) == (12, 12)
     monkeypatch.setattr(lh, "hist_products_cuda", lh.hist_products_plain)

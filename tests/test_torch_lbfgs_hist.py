@@ -153,8 +153,8 @@ def test_cpu_tensors_take_the_plain_versions(rng, monkeypatch):
 
 
 def test_a_cpu_direction_is_not_counted_as_a_kernel_direction(rng):
-    """`lbfgs.direction.kernel` counts the kernels' combine launches only:
-    compact iterations on the CPU count as iterations and not there."""
+    """The wrappers' `.launches` count the kernels' launches only: compact
+    iterations on the CPU count as iterations and launch nothing."""
     from pcfa_tpu_torch.attack import lbfgs
     from pcfa_tpu_torch.utils import profiling
 
@@ -165,13 +165,14 @@ def test_a_cpu_direction_is_not_counted_as_a_kernel_direction(rng):
 
     state = lbfgs.lbfgs_init(torch.ones((2, 64), dtype=torch.float64), M)
     before = profiling.counters()
+    launches = lh.hist_products_cuda.launches, lh.hist_combine_cuda.launches
     for it in range(3):
         state, _ = lbfgs.lbfgs_iteration(vg, state, it, direction="compact")
     after = profiling.counters()
     assert after["lbfgs.iterations"] - before.get("lbfgs.iterations", 0) \
         == 3
-    assert after.get("lbfgs.direction.kernel", 0) \
-        == before.get("lbfgs.direction.kernel", 0)
+    assert (lh.hist_products_cuda.launches,
+            lh.hist_combine_cuda.launches) == launches
 
 def _bad(case, S, Y, vecs, count):
     """One input the kernels do not take."""
@@ -194,19 +195,36 @@ def _bad(case, S, Y, vecs, count):
         S = Y = torch.zeros((1, lh._MAX_HISTORY + 1, 8), dtype=S.dtype)
         g = y = s = torch.zeros((1, 8), dtype=g.dtype)
         count = torch.zeros(1, dtype=torch.int64)
+    elif case == "odd_n":
+        S, Y, g, y, s = (t[..., :60].contiguous() for t in (S, Y, g, y, s))
+    elif case == "misaligned":
+        flat = torch.empty(S.numel() + 1, dtype=S.dtype)
+        S = flat[1:].view(S.shape).copy_(S)     # 8 bytes past the base
     return S, Y, [g, y, s], count
+
+
+# what the wrappers say of an input outside the kernels' one layout
+LAYOUT = {"odd_n": "n = 60 is not a multiple of 8",
+          "misaligned": "S is not 16-byte aligned"}
 
 
 @pytest.mark.parametrize("case", ["half_history", "mixed_history",
                                   "strided_history", "bf16_vector",
                                   "mixed_vectors", "short_vector",
-                                  "int32_count", "long_history"])
+                                  "int32_count", "long_history", *LAYOUT])
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(rng, case):
-    """Checked before any launch, so a CPU tensor shows it."""
+    """Checked before any launch, so a CPU tensor shows it. An n or a
+    buffer outside the kernels' 16-byte pieces: both wrappers refuse it,
+    naming which."""
     S, Y, vecs, count, _ = _ring(rng, 64)
     S, Y, vecs, count = _bad(case, S, Y, vecs, count)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=LAYOUT.get(case)):
         lh.hist_products_cuda(S, Y, *vecs, count)
+    if case in LAYOUT:
+        top = torch.zeros((len(COUNTS), M), dtype=torch.float64)
+        gamma = torch.ones(len(COUNTS), dtype=torch.float64)
+        with pytest.raises(ValueError, match=LAYOUT[case]):
+            lh.hist_combine_cuda(S, Y, vecs[0], top, top, gamma, count)
 
 
 def test_combine_wrapper_refuses_coefficients_of_another_dtype(rng):
@@ -218,12 +236,24 @@ def test_combine_wrapper_refuses_coefficients_of_another_dtype(rng):
 
 
 def test_pieces_need_a_multiple_of_8_and_16_byte_alignment():
+    """The kernels' one layout: `_check` takes a ring of whole 16-byte
+    pieces, and names the n, or the buffer, that is not."""
     buf = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
-    whole = buf[:4 * 64].view(4, 64)
-    assert lh._vec(64, [whole]) == 8
-    assert lh._vec(60, [buf[:240].view(4, 60)]) == 1
-    offset = buf[1:4 * 64 + 1].view(4, 64)     # 2 bytes past the base
-    assert offset.is_contiguous() and lh._vec(64, [whole, offset]) == 1
+    count = torch.zeros(1, dtype=torch.int64)
+
+    def check(S, Y):
+        vecs = [torch.zeros((1, S.shape[-1])) for _ in "gys"]
+        return lh._check(S, Y, vecs, count, "history")
+
+    whole = buf[:4 * 64].view(1, 4, 64)
+    assert check(whole, whole) == (1, 4, 64)
+    odd = buf[:240].view(1, 4, 60)
+    with pytest.raises(ValueError, match="n = 60 is not a multiple of 8"):
+        check(odd, odd)
+    offset = buf[1:4 * 64 + 1].view(1, 4, 64)     # 2 bytes past the base
+    assert offset.is_contiguous()
+    with pytest.raises(ValueError, match="Y is not 16-byte aligned"):
+        check(whole, offset)
 
 
 @pytest.mark.parametrize("B,n", [(16, 2 * 3 * 376 * 1248),
