@@ -24,6 +24,7 @@ register(
         iters=12,
         make=RAFT,
         convert=convert.state_from_torch,
+        capturable=True,
         defaults={"iters": 12},
     )
 )

@@ -245,6 +245,25 @@ class RAFT(nn.Module):
                              f"{mesh.size}")
         return mesh
 
+    def graph_capturable(self, shape1: tuple, shape2: tuple,
+                         dtype: torch.dtype) -> bool:
+        """Whether CUDA graphs can capture this forward and its backward on
+        (B, H, W, 3) inputs of these shapes in `dtype` (`utils/graphs.py`
+        asks once per input signature): not with `remat` (the backward
+        recomputes), not split over ranks (collectives inside the
+        forward), and only where the corr path resolves to 'materialized'
+        for the encoder's ÷8 maps ('fused' and 'hybrid' checkpoint each
+        block of queries)."""
+        if self.remat or self.spatial_shards != 1:
+            return False
+        c = self.fnet.conv2.out_channels
+
+        def fmap(s):  # three stride-2 stages: ⌈H/8⌉ × ⌈W/8⌉
+            return (s[0], -(-s[1] // 8), -(-s[2] // 8), c)
+
+        return resolve_corr_impl(self.corr_impl, fmap(shape1), fmap(shape2),
+                                 self.corr_levels, dtype) == "materialized"
+
     def forward(self, image1: torch.Tensor, image2: torch.Tensor):
         """Spans (`utils/profiling.py`): `raft.encoders` (fnet, then cnet
         and its split), `raft.pyramid` (the corr path's set-up),

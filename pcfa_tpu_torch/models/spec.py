@@ -25,10 +25,12 @@ class ModelSpec:
     #: checkpoint that is not one torch file (SpyNet's weight directory);
     #: None: `convert(load_torch_state(path), module)`
     read: Callable[..., Any] | None = None
-    #: the forward returns one tensor, and it and its backward run fixed
-    #: shapes with no host synchronisation and no recomputation, so CUDA
-    #: graphs can capture and replay them (`runtime.make_flow_fn` does,
-    #: on the card: `utils/graphs.py`)
+    #: the forward's output, or its last output, is the flow, and the
+    #: forward and its backward run fixed shapes with no host
+    #: synchronisation and no recomputation, so CUDA graphs can capture
+    #: and replay them (`runtime.make_flow_fn` does, on the card:
+    #: `utils/graphs.py`); a module whose `graph_capturable(shape1,
+    #: shape2, dtype)` refuses an input signature runs it eagerly
     capturable: bool = False
     defaults: dict = dataclasses.field(default_factory=dict)
 

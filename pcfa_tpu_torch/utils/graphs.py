@@ -1,18 +1,29 @@
 """CUDA-graph replay of a flow network's forward and backward, for a network
 whose spec declares `capturable` (`runtime.make_flow_fn` on the card).
 
-`GraphedNetwork(module, dtype, name)(x1, x2)` gives what
-`module(x1.to(dtype), x2.to(dtype))` gives, from captured graphs, as
+`GraphedNetwork(module, dtype, name)(x1, x2)` gives the flow of
+`module(x1.to(dtype), x2.to(dtype))`, from captured graphs, as
 `torch.cuda.make_graphed_callables` does: the inputs are cast into static
 buffers and one graph replays the forward; where the call records a
 gradient, the backward copies the cotangent into a static buffer and
-replays a second graph, `torch.autograd.grad` from the forward's output to
-the inputs that need a gradient (the cotangent handed in by `_Cotangent`).
-A call that records none replays a forward-only graph. The graphs are
-keyed by the inputs' shapes and dtypes and by which inputs need a
-gradient; the graphs of one input signature (shapes and dtypes) share a
-memory pool, and `MAX_SIGNATURES` signatures are kept: a new one drops
-the least recently used, which is captured again if it returns.
+replays a second graph, `torch.autograd.grad` from the flow to the inputs
+that need a gradient (the cotangent handed in by `_Cotangent`). The flow
+is the forward's output, or the last element of the tuple it returns
+(RAFT's (flow_lr, flow_up)): the graph computes the whole tuple, and only
+the flow is kept, returned and differentiated. A call that records none
+replays a forward-only graph. The graphs are keyed by the inputs' shapes
+and dtypes and by which inputs need a gradient; the graphs of one input
+signature (shapes and dtypes) share a memory pool, and `MAX_SIGNATURES`
+signatures are kept: a new one drops the least recently used, which is
+captured again if it returns.
+
+A module with a method `graph_capturable(shape1, shape2, dtype)` says,
+once per input signature, whether its forward and backward can be
+captured on inputs of those shapes cast to `dtype` (RAFT: not under
+remat, split over ranks or off the materialized correlation path); a
+signature it refuses runs the module eagerly at every call, and counts no
+capture and no replay. That is decided before any capture, from what the
+module observes, and is no fallback.
 
 A key's first call warms the module up eagerly on a side stream (the
 small conv's packed weights, the kernels' plans, cuDNN's choices fill
@@ -130,12 +141,20 @@ class _Key:
 
 class _Signature:
     """The keys of one input signature, their shared memory pool, and the
-    number of forward replays so far (a backward checks it)."""
+    number of forward replays so far (a backward checks it); `captured`
+    False: the module refused the signature, which runs eagerly."""
 
-    def __init__(self):
-        self.pool = torch.cuda.graph_pool_handle()
+    def __init__(self, captured: bool):
+        self.captured = captured
+        self.pool = torch.cuda.graph_pool_handle() if captured else None
         self.keys: dict = {}
         self.forwards = 0
+
+
+def _flow(out):
+    """The flow of a forward's output: the output, or a tuple's last
+    element."""
+    return out[-1] if isinstance(out, tuple) else out
 
 
 class _Replay(torch.autograd.Function):
@@ -190,8 +209,11 @@ class GraphedNetwork:
     def __call__(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         grad = torch.is_grad_enabled()
         needs = (grad and x1.requires_grad, grad and x2.requires_grad)
-        sig = self._signature((tuple(x1.shape), tuple(x2.shape), x1.dtype,
-                               x2.dtype, x1.device))
+        sig = self._signature(x1, x2)
+        if not sig.captured:
+            if self.dtype is not None:
+                x1, x2 = x1.to(self.dtype), x2.to(self.dtype)
+            return _flow(self.module(x1, x2))
         key = sig.keys.get(needs)
         if key is None:
             key = sig.keys[needs] = self._capture(sig, needs, x1, x2)
@@ -200,14 +222,17 @@ class GraphedNetwork:
         _replay_forward(sig, key, x1, x2)
         return key.out.clone()
 
-    def _signature(self, s) -> _Signature:
+    def _signature(self, x1, x2) -> _Signature:
+        s = (tuple(x1.shape), tuple(x2.shape), x1.dtype, x2.dtype, x1.device)
         sig = self.signatures.get(s)
         if sig is not None:
             self.signatures.move_to_end(s)
             return sig
         if len(self.signatures) >= MAX_SIGNATURES:
             self.signatures.popitem(last=False)
-        sig = self.signatures[s] = _Signature()
+        ask = getattr(self.module, "graph_capturable", None)
+        sig = self.signatures[s] = _Signature(
+            ask is None or ask(s[0], s[1], self.dtype or x1.dtype))
         return sig
 
     def _capture(self, sig: _Signature, needs, x1, x2) -> _Key:
@@ -226,7 +251,7 @@ class GraphedNetwork:
             self.stream = torch.cuda.Stream(dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream), torch.set_grad_enabled(grad):
-            out = self.module(*key.inputs)
+            out = _flow(self.module(*key.inputs))
             if grad:
                 torch.autograd.grad(
                     _Cotangent.apply(out, torch.ones_like(out)), wrt)
@@ -236,7 +261,7 @@ class GraphedNetwork:
         key.fwd = torch.cuda.CUDAGraph()
         with self._capturing(key, key.fwd, sig.pool, "forward") as counts, \
                 torch.set_grad_enabled(grad):
-            key.out = self.module(*key.inputs)
+            key.out = _flow(self.module(*key.inputs))
         key.fwd_counts = tuple(counts)
         if grad:
             key.grad_out = torch.empty_like(key.out)

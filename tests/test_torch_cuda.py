@@ -1306,12 +1306,14 @@ def _graph_counts():
     c = profiling.counters()
     out = {k: c.get(k, 0) for k in (
         "local_corr.fwd", "local_corr.bwd", "warp.bwd", "flow.graph_captures",
-        "flow.graph_replays")}
+        "flow.graph_replays", "raft.corr_impl.materialized")}
     out.update(local_corr_fwd=local_corr.local_corr_fwd.launches,
                local_corr_bwd=local_corr.local_corr_bwd.launches,
                small_conv_fwd=sc.small_conv_fwd.launches,
                small_conv_dx=sc.small_conv_dx.launches,
-               warp_bwd_cuda=segsum.warp_bwd_cuda.launches)
+               warp_bwd_cuda=segsum.warp_bwd_cuda.launches,
+               corr_window_fwd=cl.corr_window_fwd.launches,
+               corr_window_bwd=cl.corr_window_bwd.launches)
     return out
 
 
@@ -1323,9 +1325,10 @@ def _delta(fn):
     return out, {k: v - before[k] for k, v in after.items()}
 
 
-def _pwc_flow_fns(cuda, monkeypatch, dtype):
-    """PWCNet with random weights: (padder, the graphed flow function, the
-    same network's eager one) at 128×192, in `dtype` compute."""
+def _flow_fns(cuda, monkeypatch, dtype, name="PWCNet", **kw):
+    """`name` (PWCNet, or RAFT with its cells' 12 iterations) with random
+    weights and the overrides `kw`: (padder, the graphed flow function,
+    the same network's eager one) at 128×192, in `dtype` compute."""
     import dataclasses
 
     from pcfa_tpu_torch import runtime
@@ -1334,8 +1337,8 @@ def _pwc_flow_fns(cuda, monkeypatch, dtype):
         monkeypatch.setenv("PCFA_COMPUTE_DTYPE", "bfloat16")
     else:
         monkeypatch.delenv("PCFA_COMPUTE_DTYPE", raising=False)
-    loaded = runtime.load_model("PWCNet", init_random=True, seed=0,
-                                device=cuda)
+    loaded = runtime.load_model(name, init_random=True, seed=0,
+                                device=cuda, **kw)
     assert loaded.spec.capturable
     eager = dataclasses.replace(loaded, spec=dataclasses.replace(
         loaded.spec, capturable=False))
@@ -1344,7 +1347,7 @@ def _pwc_flow_fns(cuda, monkeypatch, dtype):
     return padder, graphed_fn, eager_fn
 
 
-def _pwc_inputs(seed, pairs=1, hw=(128, 192)):
+def _inputs(seed, pairs=1, hw=(128, 192)):
     gen = torch.Generator().manual_seed(seed)
     return [torch.rand((pairs, *hw, 3), generator=gen).cuda()
             for _ in range(3)]
@@ -1370,14 +1373,14 @@ def test_pwcnet_graph_replay_matches_eager(cuda, monkeypatch, dtype, tol):
     the warp's counters and every kernel's `.launches` by exactly what an
     eager closure does (5, 5, 4 and the small conv's 11 and 11), and
     `flow.graph_replays` by one, with no capture after the first."""
-    _, graphed_fn, eager_fn = _pwc_flow_fns(cuda, monkeypatch, dtype)
-    x1, x2, _ = _pwc_inputs(0)
+    _, graphed_fn, eager_fn = _flow_fns(cuda, monkeypatch, dtype)
+    x1, x2, _ = _inputs(0)
     g = torch.randn((1, 128, 192, 2), generator=torch.Generator()
                     .manual_seed(1)).cuda()
     _, first = _delta(lambda: _closure(graphed_fn, x1, x2, g))
     assert first["flow.graph_captures"] == 1
     for seed in (2, 3):
-        y1, y2, _ = _pwc_inputs(seed)
+        y1, y2, _ = _inputs(seed)
         got, d_graph = _delta(lambda: _closure(graphed_fn, y1, y2, g))
         want, d_eager = _delta(lambda: _closure(eager_fn, y1, y2, g))
         for a, b in zip(got, want):
@@ -1408,9 +1411,9 @@ def test_pwcnet_graph_replay_returns_its_own_tensors(cuda, monkeypatch,
     inputs, is no graph's static buffer: a second replay, on other
     inputs, leaves the first call's flow and gradients as they were; the
     same for a forward without gradient."""
-    _, graphed_fn, _ = _pwc_flow_fns(cuda, monkeypatch, dtype)
-    x1, x2, _ = _pwc_inputs(0)
-    y1, y2, _ = _pwc_inputs(1)
+    _, graphed_fn, _ = _flow_fns(cuda, monkeypatch, dtype)
+    x1, x2, _ = _inputs(0)
+    y1, y2, _ = _inputs(1)
     g = torch.ones((1, 128, 192, 2), device=cuda)
     first = _closure(graphed_fn, x1, x2, g)
     kept = [t.clone() for t in first]
@@ -1429,9 +1432,9 @@ def test_pwcnet_graphs_keyed_by_batch_size(cuda, monkeypatch):
     """A new batch size captures once more, and each size keeps its
     graphs: back at the first size nothing is captured. The replays at
     the new size match the eager closure there (bf16: 1e-2, as above)."""
-    _, graphed_fn, eager_fn = _pwc_flow_fns(cuda, monkeypatch,
+    _, graphed_fn, eager_fn = _flow_fns(cuda, monkeypatch,
                                             torch.bfloat16)
-    x1, x2, _ = _pwc_inputs(0, pairs=2)
+    x1, x2, _ = _inputs(0, pairs=2)
     g = torch.ones((2, 128, 192, 2), device=cuda)
     _, d = _delta(lambda: _closure(graphed_fn, x1[:1], x2[:1], g[:1]))
     assert d["flow.graph_captures"] == 1
@@ -1456,9 +1459,9 @@ def test_pwcnet_graphs_own_what_their_kernels_read(cuda, monkeypatch):
 
     from pcfa_tpu_torch.utils import graphs
 
-    _, graphed_fn, eager_fn = _pwc_flow_fns(cuda, monkeypatch,
+    _, graphed_fn, eager_fn = _flow_fns(cuda, monkeypatch,
                                             torch.bfloat16)
-    x1, x2, _ = _pwc_inputs(0)
+    x1, x2, _ = _inputs(0)
     g = torch.ones((1, 128, 192, 2), device=cuda)
     _, d = _delta(lambda: _closure(graphed_fn, x1, x2, g))
     assert d["flow.graph_captures"] == 1
@@ -1497,8 +1500,8 @@ def test_pwcnet_graph_replay_credits_the_launches_its_trace_shows(
     credited (the names `benchmark/kernels/*.py` match)."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, graphed_fn, _ = _pwc_flow_fns(cuda, monkeypatch, dtype)
-    x1, x2, _ = _pwc_inputs(0)
+    _, graphed_fn, _ = _flow_fns(cuda, monkeypatch, dtype)
+    x1, x2, _ = _inputs(0)
     g = torch.ones((1, 128, 192, 2), device=cuda)
     _closure(graphed_fn, x1, x2, g)
     torch.cuda.synchronize()
@@ -1519,19 +1522,186 @@ def test_pwcnet_graph_replay_credits_the_launches_its_trace_shows(
         d["small_conv_fwd"] + d["small_conv_dx"] == 22
 
 
-@pytest.mark.cuda
-def test_raft_flow_fn_never_captures(cuda):
-    """RAFT's spec does not declare `capturable` (its refinement loop runs
-    under checkpoint recomputation and picks its correlation path on the
-    host): its flow function calls the module, and captures and replays
-    nothing."""
-    from pcfa_tpu_torch import runtime
+class _Pair(torch.nn.Module):
+    """A stand-in network with a tuple output, (coarse, flow)."""
 
-    loaded = runtime.load_model("RAFT", init_random=True, seed=0,
-                                device=cuda, iters=2)
-    assert not loaded.spec.capturable
-    _, flow_fn = runtime.make_flow_fn(loaded, (128, 128))
-    x1, x2, _ = _pwc_inputs(0, hw=(128, 128))
-    g = torch.ones((1, 128, 128, 2), device=cuda)
-    _, d = _delta(lambda: _closure(flow_fn, x1, x2, g))
-    assert d["flow.graph_captures"] == d["flow.graph_replays"] == 0
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.tensor(0.5), requires_grad=False)
+
+    def forward(self, x1, x2):
+        coarse = x1 - x2
+        return coarse, (self.w * coarse * x2)[..., :2]
+
+
+@pytest.mark.cuda
+def test_graphed_network_keeps_a_tuples_last_output(cuda):
+    """A forward that returns a tuple is captured whole; the replay gives
+    its last element, the flow, and the backward graph seeded from it
+    alone gives the inputs' gradients: both equal the eager module's
+    (the same kernels on the same inputs)."""
+    from pcfa_tpu_torch.utils import graphs
+
+    module = _Pair().to(cuda)
+    net = graphs.GraphedNetwork(module, None, "standin")
+    g = torch.rand((2, 16, 16, 2), device=cuda)
+    _, d = _delta(lambda: _closure(net, *_inputs(0, 2, (16, 16))[:2], g))
+    assert d["flow.graph_captures"] == 1
+    for seed in (1, 2):
+        x1, x2, _ = _inputs(seed, 2, (16, 16))
+        got, d = _delta(lambda: _closure(net, x1, x2, g))
+        assert d["flow.graph_captures"] == 0 and d["flow.graph_replays"] == 1
+        for a, b in zip(got, _closure(lambda u, v: module(u, v)[-1], x1, x2,
+                                      g)):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+#: RAFT's tolerances against its eager module, relative to the values'
+#: scale. A replay runs the eager call's kernels, but two eager float32
+#: closures already differ in the input gradients by up to 1.2e-6 of the
+#: scale (cuDNN's convolution backward sums in no fixed order), and a
+#: replay by as much: 1e-5. In bf16 that float32 difference can flip a
+#: bf16 rounding, one bf16 ulp (≤ 2⁻⁷ of a value): 1e-2.
+RAFT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raft_graph_replay_matches_eager(cuda, monkeypatch, dtype):
+    """RAFT's flow function replays CUDA graphs (its spec declares
+    `capturable`, and the 128×192 signature resolves to the materialized
+    corr path): the flow and the input gradients of replayed closures and
+    forwards match the same network's eager calls (`RAFT_TOL`). Each
+    replayed closure advances the lookup's and the small conv's
+    `.launches` by exactly what an eager closure does (12 and 12 over the
+    12 iterations; 10 and 10), `raft.corr_impl.materialized` by one, and
+    `flow.graph_replays` by one, with no capture after the first."""
+    _, graphed_fn, eager_fn = _flow_fns(cuda, monkeypatch, dtype, "RAFT")
+    tol = RAFT_TOL[dtype]
+    x1, x2, _ = _inputs(0)
+    g = torch.randn((1, 128, 192, 2), generator=torch.Generator()
+                    .manual_seed(1)).cuda()
+    _, first = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert first["flow.graph_captures"] == 1
+    for seed in (2, 3):
+        y1, y2, _ = _inputs(seed)
+        got, d_graph = _delta(lambda: _closure(graphed_fn, y1, y2, g))
+        want, d_eager = _delta(lambda: _closure(eager_fn, y1, y2, g))
+        for a, b in zip(got, want):
+            _close(a, b, tol)
+        assert d_graph.pop("flow.graph_replays") == 1
+        assert d_eager.pop("flow.graph_replays") == 0
+        assert d_graph == d_eager, (d_graph, d_eager)
+        assert d_eager["corr_window_fwd"] == d_eager["corr_window_bwd"] == 12
+        assert d_eager["small_conv_fwd"] == d_eager["small_conv_dx"] == 10
+        assert d_eager["raft.corr_impl.materialized"] == 1
+    with torch.no_grad():
+        got, d_graph = _delta(lambda: graphed_fn(y1, y2))
+        want, d_eager = _delta(lambda: eager_fn(y1, y2))
+        _close(got, want, tol)
+        assert d_graph.pop("flow.graph_captures") == 1  # forward-only key
+        assert d_graph.pop("flow.graph_replays") == 1
+        _, d_graph = _delta(lambda: graphed_fn(y1, y2))
+    assert d_graph.pop("flow.graph_replays") == 1
+    assert d_graph == {k: 0 for k in d_graph} | {
+        "corr_window_fwd": 12, "small_conv_fwd": 10,
+        "raft.corr_impl.materialized": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raft_graph_replay_returns_its_own_tensors(cuda, monkeypatch, dtype):
+    """What a RAFT replay returns, the flow and the input gradients, is no
+    graph's static buffer: a second replay, on other inputs, leaves the
+    first call's results as they were; the same without gradient."""
+    _, graphed_fn, _ = _flow_fns(cuda, monkeypatch, dtype, "RAFT")
+    x1, x2, _ = _inputs(0)
+    y1, y2, _ = _inputs(1)
+    g = torch.ones((1, 128, 192, 2), device=cuda)
+    first = _closure(graphed_fn, x1, x2, g)
+    kept = [t.clone() for t in first]
+    second = _closure(graphed_fn, y1, y2, g)
+    for a, b, c in zip(first, kept, second):
+        assert torch.equal(a, b) and not torch.equal(a, c)
+    with torch.no_grad():
+        f1 = graphed_fn(x1, x2)
+        kept = f1.clone()
+        f2 = graphed_fn(y1, y2)
+    assert torch.equal(f1, kept) and not torch.equal(f1, f2)
+
+
+@pytest.mark.cuda
+def test_raft_graphs_keyed_by_batch_size(cuda, monkeypatch):
+    """A second batch size captures once, and back at the first size
+    nothing is captured; the replays at the new size match the eager
+    closure there (`RAFT_TOL`)."""
+    _, graphed_fn, eager_fn = _flow_fns(cuda, monkeypatch, torch.bfloat16,
+                                        "RAFT")
+    x1, x2, _ = _inputs(0, pairs=2)
+    g = torch.ones((2, 128, 192, 2), device=cuda)
+    _, d = _delta(lambda: _closure(graphed_fn, x1[:1], x2[:1], g[:1]))
+    assert d["flow.graph_captures"] == 1
+    _, d = _delta(lambda: _closure(graphed_fn, x1, x2, g))
+    assert d["flow.graph_captures"] == 1 and d["flow.graph_replays"] == 1
+    _, d = _delta(lambda: _closure(graphed_fn, x1[1:], x2[1:], g[1:]))
+    assert d["flow.graph_captures"] == 0 and d["flow.graph_replays"] == 1
+    got, d = _delta(lambda: _closure(graphed_fn, x2, x1, g))
+    assert d["flow.graph_captures"] == 0 and d["flow.graph_replays"] == 1
+    for a, b in zip(got, _closure(eager_fn, x2, x1, g)):
+        _close(a, b, RAFT_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,impl", [
+    ({"remat": True}, "materialized"), ({"corr_impl": "fused"}, "fused"),
+    ({"corr_impl": "hybrid"}, "hybrid")], ids=["remat", "fused", "hybrid"])
+def test_raft_flow_fn_never_captures(cuda, monkeypatch, kw, impl):
+    """A RAFT built with `remat` (the backward recomputes each iteration)
+    or on the 'fused' or 'hybrid' corr path (each block of queries
+    checkpointed) refuses capture: its flow function calls the module
+    eagerly at every call, which counts its corr path, and captures and
+    replays nothing; the flow and gradients are the eager module's
+    (`RAFT_TOL`)."""
+    from pcfa_tpu_torch.utils import profiling
+
+    _, flow_fn, eager_fn = _flow_fns(cuda, monkeypatch, torch.float32,
+                                     "RAFT", iters=2, **kw)
+    x1, x2, _ = _inputs(0)
+    g = torch.ones((1, 128, 192, 2), device=cuda)
+    key = f"raft.corr_impl.{impl}"
+    for _ in range(2):
+        n = profiling.counters().get(key, 0)
+        got, d = _delta(lambda: _closure(flow_fn, x1, x2, g))
+        assert d["flow.graph_captures"] == d["flow.graph_replays"] == 0
+        assert profiling.counters()[key] == n + 1
+    for a, b in zip(got, _closure(eager_fn, x1, x2, g)):
+        _close(a, b, RAFT_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_raft_pcfa_replays_every_flow_call(cuda, monkeypatch):
+    """In a short RAFT PCFA attack after the first (which captures the
+    closure's and the forward's graphs), every call of the flow function
+    is a replay: `flow.graph_replays` = `flow.closures` + `flow.forwards`,
+    no capture, and `raft.corr_impl.materialized` still counts once a
+    call (from the capture's tally)."""
+    from pcfa_tpu_torch.attack.pcfa import PCFAConfig, pcfa_attack
+    from pcfa_tpu_torch.utils import profiling
+
+    _, flow_fn, _ = _flow_fns(cuda, monkeypatch, torch.bfloat16, "RAFT")
+    target = torch.zeros((2, 128, 192, 2), device=cuda)
+    cfg = PCFAConfig(steps=2, max_iter=3, lbfgs_direction="compact",
+                     lbfgs_history_dtype="bfloat16")
+    names = ("flow.closures", "flow.forwards", "flow.graph_replays",
+             "flow.graph_captures", "raft.corr_impl.materialized")
+    pcfa_attack(flow_fn, *_inputs(0, 2)[:2], target, cfg, device=cuda)
+    before = profiling.counters()
+    pcfa_attack(flow_fn, *_inputs(1, 2)[:2], target, cfg, device=cuda)
+    torch.cuda.synchronize()
+    after = profiling.counters()
+    d = {k: after.get(k, 0) - before.get(k, 0) for k in names}
+    calls = d["flow.closures"] + d["flow.forwards"]
+    assert d["flow.closures"] >= cfg.steps and d["flow.forwards"] >= 1
+    assert d["flow.graph_replays"] == calls, d
+    assert d["flow.graph_captures"] == 0, d
+    assert d["raft.corr_impl.materialized"] == calls, d

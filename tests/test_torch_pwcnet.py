@@ -237,13 +237,13 @@ def test_runtime_pwcnet_flow_fn_on_cpu(monkeypatch):
 
 def test_pwcnet_flow_fn_on_cpu_takes_the_eager_path():
     """PWCNet's spec declares `capturable` (its forward and backward can
-    be replayed from CUDA graphs on the card) and RAFT's does not; on the
+    be replayed from CUDA graphs on the card) and GMA's does not; on the
     CPU the flow function calls the module directly: no capture, no
     replay, and the module's own flow and input gradient."""
     from pcfa_tpu_torch.models import get_spec
     from pcfa_tpu_torch.utils import profiling
 
-    assert get_spec("PWCNet").capturable and not get_spec("RAFT").capturable
+    assert get_spec("PWCNet").capturable and not get_spec("GMA").capturable
     loaded = runtime.load_model("PWCNet", init_random=True, seed=1,
                                 device="cpu")
     padder, flow_fn = runtime.make_flow_fn(loaded, (64, 128))
